@@ -3,7 +3,7 @@
 // The reference implements its host-side scene pipeline in native code (Rust:
 // make_triangle raytrace.rs:340-383, build_bounding_box raytrace.rs:790-845,
 // obj parsing; C++ host marshalling cuda_rt.cc:326-441).  This library is the
-// TPU build's native runtime for the same stage: everything upstream of the
+// native runtime of this build for the same stage: everything upstream of the
 // device (parsing -> precompute -> spatial ordering -> octree) runs here at
 // C++ speed for large scenes, exported through a plain C ABI consumed via
 // ctypes (rust_raytrace_tpu/utils/native.py).  The numpy implementations

@@ -10,9 +10,12 @@ Subcommands:
              per-ray debug CSVs (debug.rs format)
   diff     — differential-compare two renders per pixel/ray (the
              main.rs:206-227 dual-render + compare_to flow)
-  tune     — hill-climb (page_size, ray_chunk) for the engine, the analog of
-             the reference's octree-parameter tuner `optimize()`
-             (main.rs:20-62)
+  tune     — hill-climb the engine's page size, the analog of the
+             reference's octree-parameter tuner `optimize()` (main.rs:20-62)
+
+The engine needs an NVIDIA GPU.  JAX_PLATFORMS=cpu runs it on the CPU with
+the trace kernel in the Pallas interpreter; without either, it stops with an
+error.
 
 Examples:
   python -m rust_raytrace_tpu.cli render --scene teapot --resolution 2k \
@@ -23,11 +26,6 @@ Examples:
       --a engine --b simple
   python -m rust_raytrace_tpu.cli tune --scene teapot --resolution 2k
 """
-
-import os
-
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR",
-                      os.path.expanduser("~/.cache/jax_rt"))
 
 import argparse
 import sys
@@ -48,8 +46,9 @@ def build_scene(args):
         res = (int(w), int(h))      # explicit WxH, e.g. --resolution 640x480
     kwargs = dict(resolution=res, maxdepth=args.maxdepth, samples=args.spp)
     if getattr(args, "lights", False):
-        if args.scene != "teapot":
-            raise SystemExit("--lights is wired for the teapot scene")
+        if args.scene not in ("teapot", "circles"):
+            raise SystemExit("--lights is wired for the teapot and circles "
+                             "scenes")
         kwargs["with_light"] = True
     if getattr(args, "obj", None):
         if args.scene not in ("obj", "teapot"):
@@ -62,28 +61,21 @@ def build_scene(args):
     return build(**kwargs)
 
 
-def _on_tpu() -> bool:
-    """True when computation will actually land on a TPU (honors an explicit
-    jax_default_device pin, e.g. tests/dev boxes forcing CPU)."""
-    import jax
-    dev = jax.config.jax_default_device
-    if dev is not None:
-        return dev.platform == "tpu"
-    return jax.default_backend() == "tpu"
-
-
 def make_renderer(name: str, scene, args):
+    if name == "oracle":
+        return None
+    from .utils.platform import trace_interpret
+    try:
+        interpret = trace_interpret()
+    except RuntimeError as e:
+        raise SystemExit(f"error: {e}") from None
     if name == "engine":
         from .engine import Engine
         return Engine(scene, page_size=args.page_size,
-                      ray_chunk=args.ray_chunk, interpret=not _on_tpu())
-    if name in ("simple", "xla", "pallas", "pallas_interpret"):
+                      ray_chunk=args.ray_chunk, interpret=interpret)
+    if name in ("simple", "xla"):
         from .render import WavefrontRenderer
-        backend = "auto" if name == "simple" else name
-        return WavefrontRenderer(scene, page_size=args.page_size,
-                                 ray_chunk=args.ray_chunk, backend=backend)
-    if name == "oracle":
-        return None
+        return WavefrontRenderer(scene, page_size=args.page_size)
     raise SystemExit(f"unknown backend {name!r}")
 
 
@@ -192,58 +184,44 @@ def cmd_diff(args):
 
 
 def cmd_tune(args):
-    """Hill-climb (page_size, ray_chunk) — reference optimize(), main.rs:20-62.
-
-    The candidate grid adapts to the scene: page sizes span 40..page_size+32
-    around the engine's auto-bumped default (big scenes force larger pages —
-    a fixed 48-64 grid excluded the sizes such scenes actually use, VERDICT
-    r2 weak #5), and the walk starts from the engine defaults."""
+    """Hill-climb the engine's page size — reference optimize(),
+    main.rs:20-62 — over powers of two (the kernel's tile width)."""
     import jax
 
-    from .engine import Engine
-
     scene, vp = build_scene(args)
-    auto_ps = Engine(scene).page_size       # after the auto bump
-    page_opts = sorted({max(40, auto_ps + 8 * k) for k in range(-2, 5)})
-    chunk_opts = [256, 512, 1024, 2048, 4096]
+    page_opts = [16, 32, 64, 128, 256]
     runtimes = {}
 
-    def run(ps, rc):
-        if (ps, rc) not in runtimes:
-            print(f"Running iteration page_size={ps} ray_chunk={rc}")
-            eng = Engine(scene, page_size=ps, ray_chunk=rc)
-            eng.render(vp)  # compile + plan the boundary schedule
-            eng._auto_schedule = False
-            eng.render(vp)  # re-compile against the planned schedule
+    def run(ps):
+        if ps not in runtimes:
+            print(f"Running iteration page_size={ps}")
+            args.page_size = ps
+            eng = make_renderer("engine", scene, args)
+            eng.render(vp)      # compile
             t0 = time.perf_counter()
             eng.render(vp, key=jax.random.PRNGKey(1))
-            runtimes[(ps, rc)] = time.perf_counter() - t0
-            print(f"Runtime: {runtimes[(ps, rc)]:.3f}")
-        return runtimes[(ps, rc)]
+            runtimes[ps] = time.perf_counter() - t0
+            print(f"Runtime: {runtimes[ps]:.3f}")
+        return runtimes[ps]
 
-    pi = page_opts.index(min(page_opts, key=lambda p: abs(p - auto_ps)))
-    ci = chunk_opts.index(1024)
+    i = page_opts.index(64)
     while True:
-        best = None
-        for dp in (-1, 0, 1):
-            for dc in (-1, 0, 1):
-                p, c = pi + dp, ci + dc
-                if 0 <= p < len(page_opts) and 0 <= c < len(chunk_opts):
-                    t = run(page_opts[p], chunk_opts[c])
-                    if best is None or t < best[0]:
-                        best = (t, p, c)
-        if (best[1], best[2]) == (pi, ci):
+        best = min((run(page_opts[j]), j) for j in (i - 1, i, i + 1)
+                   if 0 <= j < len(page_opts))
+        if best[1] == i:
             break
-        pi, ci = best[1], best[2]
-    print(f"Found minimum at page_size={page_opts[pi]} "
-          f"ray_chunk={chunk_opts[ci]} ({runtimes[(page_opts[pi], chunk_opts[ci])]:.3f}s)")
+        i = best[1]
+    print(f"Found minimum at page_size={page_opts[i]} "
+          f"({runtimes[page_opts[i]]:.3f}s)")
 
 
 def main(argv=None):
     # env_logger::init() analog (main.rs:91): RUST_RAYTRACE_LOG=debug enables
     # depth-indented per-ray/per-box traversal tracing on the oracle paths
+    from .utils.platform import configure_compile_cache
     from .utils.tracelog import init_from_env
     init_from_env()
+    configure_compile_cache()
 
     p = argparse.ArgumentParser(prog="rust_raytrace_tpu")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -253,10 +231,11 @@ def main(argv=None):
         sp.add_argument("--resolution", default="dev")
         sp.add_argument("--maxdepth", type=int, default=5)
         sp.add_argument("--spp", type=int, default=1)
-        sp.add_argument("--page-size", type=int, default=56)
+        sp.add_argument("--page-size", type=int, default=64)
         sp.add_argument("--ray-chunk", type=int, default=1024)
         sp.add_argument("--lights", action="store_true",
-                        help="enable the shadow-ray light (teapot scene)")
+                        help="enable the shadow-ray light (teapot and "
+                             "circles scenes)")
         sp.add_argument("--obj", help="path to a user .obj mesh "
                                       "(--scene obj; auto-framed camera)")
         sp.add_argument("--obj-scale", type=float, default=1.0,
@@ -265,8 +244,7 @@ def main(argv=None):
     sp = sub.add_parser("render", help="render a scene to PNG")
     common(sp)
     sp.add_argument("--backend", default="engine",
-                    choices=["engine", "simple", "xla", "pallas",
-                             "pallas_interpret", "oracle"])
+                    choices=["engine", "simple", "xla", "oracle"])
     sp.add_argument("--out", default="test.png")
     sp.add_argument("--band-rows", type=int, default=0,
                     help="render in horizontal bands of this many rows "

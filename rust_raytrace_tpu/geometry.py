@@ -15,8 +15,8 @@ a precomputed intersection-friendly form — NOT as three vertices:
   The hit test is then: plane hit + bounding-circle reject + three half-plane
   tests `dot(hit - centroid, side_i) <= side_len_i` (raytrace.rs:400-439).
 
-Here each scene is one SoA table (struct-of-arrays over triangles) so a Pallas
-kernel can stream contiguous pages of triangle features from HBM through VMEM.
+Here each scene is one SoA table (struct-of-arrays over triangles), packed
+into contiguous pages of triangle features for the device (ops/pages.py).
 All precompute is vectorized float32 numpy, matching the reference's f32 math.
 
 Index 0 is the reserved "miss" sentinel: scenes push `dummy_triangle()` first
@@ -148,40 +148,42 @@ def make_sphere(orig, r: float, lat_lon, surface: Surface,
     num_lat, num_lon = lat_lon
     assert num_lat % 2 == 0
 
-    tris = []
+    # the reference's per-cell scalar loop, evaluated for all cells at once
+    # with the same f32 operations in the same order
     frac_pi_2 = F32(np.pi / 2)
-    for lat_idx in range(num_lat):
-        for lon_idx in range(num_lon):
-            if lat_idx % 2 == 0:
-                phi1 = -(F32(lat_idx) / F32(num_lat) * PI - frac_pi_2)
-                phi23 = -(F32(lat_idx + 1) / F32(num_lat) * PI - frac_pi_2)
-            else:
-                phi1 = -(F32(lat_idx + 1) / F32(num_lat) * PI - frac_pi_2)
-                phi23 = -(F32(lat_idx) / F32(num_lat) * PI - frac_pi_2)
+    lat = np.arange(num_lat)
+    odd = lat % 2 == 1
+    phi_lo = -(lat.astype(F32) / F32(num_lat) * PI - frac_pi_2)
+    phi_hi = -((lat + 1).astype(F32) / F32(num_lat) * PI - frac_pi_2)
+    phi1 = np.where(odd, phi_hi, phi_lo)[:, None]
+    phi23 = np.where(odd, phi_lo, phi_hi)[:, None]
 
-            smudge = F32(0.0) if lat_idx % 2 == 0 else F32(0.5)
-            theta1 = (F32(lon_idx) + smudge) / F32(num_lon) * 2 * PI
-            theta2 = (F32(lon_idx) + F32(0.5) + smudge) / F32(num_lon) * 2 * PI
-            theta3 = (F32(lon_idx) - F32(0.5) + smudge) / F32(num_lon) * 2 * PI
-            theta4 = (F32(lon_idx) + F32(1.0) + smudge) / F32(num_lon) * 2 * PI
+    smudge = np.where(odd, F32(0.5), F32(0.0))[:, None]
+    lon = np.arange(num_lon).astype(F32)[None, :]
+    theta1 = (lon + smudge) / F32(num_lon) * 2 * PI
+    theta2 = (lon + F32(0.5) + smudge) / F32(num_lon) * 2 * PI
+    theta3 = (lon - F32(0.5) + smudge) / F32(num_lon) * 2 * PI
+    theta4 = (lon + F32(1.0) + smudge) / F32(num_lon) * 2 * PI
 
-            def at(phi, theta):
-                sphi, cphi = np.sin(phi, dtype=F32), np.cos(phi, dtype=F32)
-                return orig + np.asarray(
-                    [r * sphi,
-                     r * cphi * np.cos(theta, dtype=F32),
-                     r * cphi * np.sin(theta, dtype=F32)], dtype=F32)
+    def at(phi, theta):
+        phi = np.broadcast_to(phi, theta.shape)
+        sphi, cphi = np.sin(phi, dtype=F32), np.cos(phi, dtype=F32)
+        return orig + np.stack(
+            [r * sphi,
+             r * cphi * np.cos(theta, dtype=F32),
+             r * cphi * np.sin(theta, dtype=F32)], axis=-1).astype(F32)
 
-            p1 = at(phi1, theta1)
-            p4 = at(phi1, theta4)
-            p2 = at(phi23, theta2)
-            p3 = at(phi23, theta3)
+    p1 = at(phi1, theta1)
+    p4 = at(phi1, theta4)
+    p2 = at(phi23, theta2)
+    p3 = at(phi23, theta3)
 
-            tris.append([p1, p2, p3])
-            if lat_idx != 0 and lat_idx != num_lat - 1:
-                tris.append([p1, p2, p4])
-
-    return make_triangles(np.asarray(tris, dtype=F32), surface, edge_thickness)
+    # per cell: (p1, p2, p3), then (p1, p2, p4) except on the pole rows
+    pairs = np.stack([np.stack([p1, p2, p3], axis=2),
+                      np.stack([p1, p2, p4], axis=2)], axis=2)
+    keep = np.ones((num_lat, num_lon, 2), dtype=bool)
+    keep[[0, num_lat - 1], :, 1] = False
+    return make_triangles(pairs[keep], surface, edge_thickness)
 
 
 def make_disk(orig, norm, r: float, d: float, num_tris: int,

@@ -1,7 +1,7 @@
 """Surface/material model as SoA parameter tables.
 
 The reference stores a per-triangle `SurfaceKind` enum — Solid / Matte /
-Reflective (`raytrace_lib/src/raytrace.rs:303-308`).  On TPU, per-primitive
+Reflective (`raytrace_lib/src/raytrace.rs:303-308`).  Here per-primitive
 sum types become an integer kind array plus dense parameter tables gathered by
 hit index; the wavefront shader selects behavior with `jnp.where` masks rather
 than enum dispatch.

@@ -1,10 +1,10 @@
 """3-vector math for host-side scene precompute.
 
-TPU-native rethink of the reference's SIMD Vec3 core
+Batched rethink of the reference's SIMD Vec3 core
 (`raytrace_lib/src/raytrace.rs:22-173`).  The reference wraps a 4-lane f32 SIMD
-register per vector and threads scalar Vec3 values through every call; on TPU
-there is no scalar-SIMD type — vectors are rows of `[..., 3]` float32 arrays and
-the 8x128 VPU vectorizes across the batch dimension instead of across xyz.  All
+register per vector and threads scalar Vec3 values through every call; here
+vectors are rows of `[..., 3]` float32 arrays, vectorized across the batch
+dimension instead of across xyz.  All
 functions here are shape-polymorphic over leading dimensions and are used both
 by numpy (host precompute, test oracle) and by jax.numpy inside jit (they only
 use ufuncs common to both).

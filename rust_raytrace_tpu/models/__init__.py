@@ -9,15 +9,21 @@ Each module exposes `build(...) -> (Scene, Viewport)`:
                no longer calls — scene parameters are this repo's own).
   - `multi`:   multi-object instanced scene (teapots + spheres + disks,
                reflective, multi-bounce) for the BASELINE "multi-object" config.
+  - `sphere_100k`, `sphere_1m`: one lat/lon sphere of 99.9k or 1.0M
+               triangles (the scene-size axis).
   - `obj`:     any user .obj mesh with an auto-framed camera (the reference
                can only render assets compiled into main.rs) — CLI `--obj`.
 """
 
-from . import teapot, circles, multi, objfile  # noqa: F401
+import functools
+
+from . import teapot, circles, multi, objfile, spheres  # noqa: F401
 
 REGISTRY = {
     "teapot": teapot.build,
     "circles": circles.build,
     "multi": multi.build,
+    "sphere_100k": functools.partial(spheres.build, segments=224),
+    "sphere_1m": functools.partial(spheres.build, segments=708),
     "obj": objfile.build,       # any user .obj via --obj PATH
 }

@@ -39,7 +39,8 @@ SPHERES = [
 ]
 
 
-def build(resolution="dev", maxdepth: int = 5, samples: int = 1):
+def build(resolution="dev", maxdepth: int = 5, samples: int = 1,
+          with_light: bool = False):
     if isinstance(resolution, str):
         width, height = RESOLUTIONS[resolution]
     else:
@@ -56,6 +57,11 @@ def build(resolution="dev", maxdepth: int = 5, samples: int = 1):
         edge_thickness=-1.0))
 
     scene = assemble(parts)
+    if with_light:
+        # shadow-ray extension; the light sits above and behind the camera
+        from ..scene import LightSource
+        scene.lights = LightSource(
+            orig=np.asarray([0.0, 12.0, 4.0], dtype=F32), len2=0.25)
     viewport = create_viewport(
         px=(width, height), size=(1.0, float(aspect)),
         pos=(0.0, 0.0, 0.0), dir=m3.unit(m3.vec(0.0, 0.0, 1.0)),

@@ -17,7 +17,7 @@ from ..camera import create_transform, create_viewport
 from ..geometry import TriangleArrays, make_disk, make_sphere, make_triangles
 from ..materials import Surface, matte, reflective
 from ..obj_parser import parse_obj
-from ..scene import assemble, reference_asset
+from ..scene import assemble
 
 F32 = np.float32
 
@@ -47,25 +47,24 @@ def build(resolution="dev", maxdepth: int = 5, samples: int = 1,
 
     parts = []
 
-    # Teapot instances (when the reference asset is available; otherwise the
-    # scene is spheres+disks only).
-    path = obj_path or reference_asset("raytrace", "teapot_tri.obj")
-    if path is not None:
-        base = parse_obj(
-            path, offset=(0.0, 0.0, 0.0), scale=1.0,
-            transform=create_transform(m3.unit(m3.vec(0.0, 0.3, 1.0)),
-                                       np.radians(F32(270.0))),
-            surface=matte(m3.make_color((252, 119, 0)), alpha=0.2),
-            edge_thickness=0.05)
-        placements = [
-            ((0.0, 0.5, 5.0), 1.0, matte(m3.make_color((252, 119, 0)), 0.2)),
-            ((-3.0, -1.0, 8.0), 0.8, matte(m3.make_color((90, 180, 90)), 0.2)),
-            ((3.5, 1.0, 9.0), 1.2,
-             reflective(m3.make_color((220, 220, 240)), 0.6, 0.001)),
-        ]
-        ident = (m3.vec(1, 0, 0), m3.vec(0, 1, 0), m3.vec(0, 0, 1))
-        for offset, scale, surf in placements:
-            parts.append(instance(base, offset, scale, ident, surf, 0.05))
+    # Three teapot instances.  Without the mesh this would be a different
+    # scene under the same name, so a missing asset is an error.
+    from .teapot import teapot_obj_path
+    base = parse_obj(
+        obj_path or teapot_obj_path(), offset=(0.0, 0.0, 0.0), scale=1.0,
+        transform=create_transform(m3.unit(m3.vec(0.0, 0.3, 1.0)),
+                                   np.radians(F32(270.0))),
+        surface=matte(m3.make_color((252, 119, 0)), alpha=0.2),
+        edge_thickness=0.05)
+    placements = [
+        ((0.0, 0.5, 5.0), 1.0, matte(m3.make_color((252, 119, 0)), 0.2)),
+        ((-3.0, -1.0, 8.0), 0.8, matte(m3.make_color((90, 180, 90)), 0.2)),
+        ((3.5, 1.0, 9.0), 1.2,
+         reflective(m3.make_color((220, 220, 240)), 0.6, 0.001)),
+    ]
+    ident = (m3.vec(1, 0, 0), m3.vec(0, 1, 0), m3.vec(0, 0, 1))
+    for offset, scale, surf in placements:
+        parts.append(instance(base, offset, scale, ident, surf, 0.05))
 
     parts.append(make_sphere((-1.5, 2.5, 7.0), 1.0, (12, 18),
                              reflective(m3.make_color((230, 230, 230)), 0.7,

@@ -1,9 +1,9 @@
 """Octree acceleration structure — API-faithful port of the reference's
 "BoundingBox" spatial index (raytrace_lib/src/raytrace.rs:612-1101).
 
-The production TPU render path does NOT traverse this tree (divergent per-ray
-tree walks don't map to a 8x128 SIMD machine); it uses KD pages + packet
-culling (ops/pages.py, ops/cull.py).  The octree exists because it is part of
+The production render path does NOT traverse this tree; it walks KD pages
+grouped into banks, front to back per block of rays (ops/pages.py,
+ops/trace.py).  The octree exists because it is part of
 the reference's capability surface:
 
   - `build_bounding_box(tris, orig, len2, maxdepth, minobjs)` — cube octree

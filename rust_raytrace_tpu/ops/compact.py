@@ -1,1142 +1,32 @@
-"""Wavefront compaction — the TPU-native form of the reference's requeue.
+"""Wavefront compaction in XLA.
 
-The reference GPU workqueue retires finished rays each cycle and refills the
-next cycle to capacity from the queue (`nextcycle`, cuda_raytrace.rs:444-456;
-refill to 512 at :346-366).  On TPU, classic stream compaction is blocked by
-the platform's gather/scatter costs (0.4-75 s at ray scale — docs/PERF.md), so
-compaction is expressed as a PERMUTATION built from primitives that do lower
-well:
-
-  - per-chunk survivor ranks via a one-hot lower-triangular MXU matmul
-    (0/1 values: exact in bf16 with f32 accumulation);
-  - the permutation applied as a BYTE-SPLIT one-hot matmul: each f32 state
-    value is bitcast to u32 and split into four 0..255 byte planes (exact in
-    bf16), multiplied against the one-hot permutation matrix on the MXU
-    (single nonzero term per output -> exact), and the bytes reassembled
-    with integer ops — f32 bits move untouched, so compaction is bit-exact.
-    (A same-shape `take_along_axis` lane gather would be simpler, but Mosaic
-    only lowers tpu.dynamic_gather when the gathered dimension fits ONE
-    vreg — 128 lanes — "Multiple source vregs along gather dimension";
-    measured on-chip this round.);
-  - compacted chunk prefixes DMA'd to 128-aligned global offsets (survivor
-    segments are contiguous: offsets are a cumsum of 128-padded counts).
-
-State layout [16, R] f32 (rays on lanes; [R, 16] would lane-pad 42x):
-
-  rows 0..2   o      ray origin     (the trace kernel reads blocks
-  rows 3..5   d      ray direction   (0,i) and (1,i) of this array)
-  row  6      weight path throughput weight
-  row  7      alive  1.0 while the ray scatters on
-  rows 8..10  accum  accumulated pixel color (carried WITH the ray)
-  row  11     dead   1.0 once retired, until harvested (cumulative, so a
-                     skipped compaction wave cannot lose a retired ray)
-  rows 12..15 spare
-
-Each wave's compaction writes survivors to a prefix of a fresh [16, R] array
-(zeros elsewhere — gap lanes have o=d=0, alive=dead=0) and harvests retired
-rays (their accum rides rows 8..10) into a growing DEAD array [16, RD].
-Because rays move, the final image is reassembled by running the permutations
-BACKWARD (`expand_pallas`): for each wave, reverse-order, every original lane
-re-reads its value from the compacted position (alive) or the dead array
-(retired) — per-chunk DMA reads at the recorded offsets plus the same
-rank-gather, ~the cost of the forward pass, leaving the image in original
-tile order with no host-side bookkeeping and no ray-scale gathers ever.
-
-Safety: if a wave's survivors + alignment padding exceed R (only possible
-when >~87% of rays survive), the wave becomes an in-kernel identity
-pass-through (meta column M_IDENT — no lax.cond at the call site, whose
-branch copies of the [16, R] + dead operands cost ~3 ms/wave); the
-cumulative `dead` row guarantees no retired ray is lost.
-The dead array is sized 2R: total genuine retirements are <= R (each ray
-retires once) and per-wave alignment slack is bounded by 127 lanes/chunk.
+The reference's workqueue retires finished rays and requeues survivors to
+keep each cycle full (cuda_raytrace.rs:346-366, 444-456).  Here, after each
+wave, live rays move to a prefix of the ray arrays by a stable partition:
+a prefix sum gives every slot its new position and one scatter builds the
+permutation.  Trace-kernel blocks past the live prefix hold no live ray and
+exit at once.  Expansion (scatter back by the composed permutation) returns
+each ray's result to its original position.
 """
 
-import functools
-
-import jax
 import jax.numpy as jnp
-import numpy as np
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
-F32 = jnp.float32
-BF16 = jnp.bfloat16
 
-#: state rows
-ROW_O = 0
-ROW_D = 3
-ROW_W = 6
-ROW_ALIVE = 7
-ROW_ACC = 8
-ROW_DEAD = 11
-STATE_ROWS = 16
+def compact_order(alive):
+    """order[i] = the slot whose ray moves to slot i: live rays first, then
+    dead ones, each group in its previous order.  alive: [R] bool."""
+    a = alive.astype(jnp.int32)
+    n = jnp.sum(a)
+    pos = jnp.where(alive, jnp.cumsum(a) - 1, n + jnp.cumsum(1 - a) - 1)
+    return jnp.zeros_like(pos).at[pos].set(
+        jnp.arange(a.shape[0], dtype=jnp.int32), unique_indices=True)
 
-#: compaction chunk (independent of the trace ray_chunk; 512 keeps the
-#: [CB, CB] one-hot matrices at 512 KB bf16 and the M-build cost ~R*CB ops)
-DEFAULT_CB = 512
-ALIGN = 128
 
-#: meta columns (int32)
-M_CNT_A, M_CASE_A, M_OFF_A, M_CNT_D, M_CASE_D, M_OFF_D, M_IDENT = range(7)
-META_COLS = 8
+def compact(x, order):
+    """Gather rows of x ([R, ...]) into compacted slot order."""
+    return jnp.take(x, order, axis=0)
 
-#: bucketed ("ray sorting") variant — survivors are grouped BUCKET-MAJOR
-#: (codes in the ROW_CODE state row: 0 = gap, 1 = retired pending harvest,
-#: 2+q = alive bucket q).  STATUS: built, oracle-tested, wired into the
-#: engine twice (direction octants in round 1, page-count classes in round
-#: 2) and MEASURED 2x SLOWER end-to-end both times — per-(chunk, bucket)
-#: 128-lane alignment inflates the survivor prefix and bucketed expansion
-#: costs 3x (docs/PERF.md findings 7 and 11).  The production "ray
-#: sorting" lives inside the per-lane trace kernel instead (in-chunk
-#: count sort, ops/intersect_perlane.py), which needs no alignment
-#: padding.  Kept as the tested reference implementation of cross-chunk
-#: sorting for scenes/hardware where the tradeoff may flip.
-NB = 8                       # alive buckets (direction octants)
-ROW_CODE = 12
-META9_COLS = 32              # [cnt,case,off] x 8 octants, dead, busy flag
-M9_DEAD = 3 * NB             # cols 24..26
-M9_BUSY = 27
 
-
-def dead_capacity(R: int) -> int:
-    """Static dead-array lane capacity (see module docstring)."""
-    return 2 * R
-
-
-def make_dead_array(R: int):
-    """Dead-ray harvest buffer: 8-row payload (state rows 8..15 — accum,
-    dead flag, spares; the origin/direction of a retired ray are never
-    needed again)."""
-    return jnp.zeros((8, dead_capacity(R)), dtype=F32)
-
-
-def compact_meta(alive, dead, cb: int, dead_base, R: int,
-                 prefix=None, gate_frac=None):
-    """XLA-side per-chunk counts/offsets.  alive/dead: [R] bool-ish.
-
-    Returns (meta [NC, META_COLS] int32, total_a, skip, dead_end).
-    total_a = lanes occupied by the survivor prefix (128-aligned per chunk);
-    skip = the boundary becomes an in-kernel identity pass-through (no
-    harvest), recorded into meta column M_IDENT; no lax.cond at the call
-    site (a cond around [16, R] + dead-array operands costs ~3 ms/wave in
-    XLA branch copies — profiler-measured); dead_end = dead_base + this
-    wave's padded dead lanes.  Two skip triggers:
-      - overflow: total_a > R (alignment slack at >~87% survivors);
-      - SELF-GATING (gate_frac set): total_a > gate_frac * prefix — the
-        boundary would retire too few lanes to pay for itself.  With the
-        dynamic (prefix-proportional) compact/expand grids, a compaction's
-        cost ~ the CURRENT prefix while its savings ~ (prefix - total_a)
-        per remaining wave, so a fixed survivor-ratio threshold is the
-        economic rule; the decision is fully traced (no host sync, no
-        cond), and a skipped boundary costs only its prefix-sized identity
-        copy (~0.1 ms).  `prefix`: traced lane extent of current content
-        (None = R, the first boundary).
-    """
-    NC = R // cb
-    cnt_a = jnp.sum(alive.reshape(NC, cb) != 0, axis=1, dtype=jnp.int32)
-    cnt_d = jnp.sum(dead.reshape(NC, cb) != 0, axis=1, dtype=jnp.int32)
-    pad_a = ((cnt_a + (ALIGN - 1)) // ALIGN) * ALIGN
-    pad_d = ((cnt_d + (ALIGN - 1)) // ALIGN) * ALIGN
-    cs_a = jnp.cumsum(pad_a)
-    cs_d = jnp.cumsum(pad_d)
-    off_a = cs_a - pad_a
-    off_d = dead_base.astype(jnp.int32) + cs_d - pad_d
-    total_a = cs_a[-1]
-    dead_end = dead_base.astype(jnp.int32) + cs_d[-1]
-    skip = total_a > R
-    if gate_frac is not None:
-        pref_f = (jnp.float32(R) if prefix is None
-                  else prefix.astype(jnp.float32))
-        skip = skip | (total_a.astype(jnp.float32)
-                       > jnp.float32(gate_frac) * pref_f)
-    ident = jnp.broadcast_to(skip.astype(jnp.int32), cnt_a.shape)
-    meta = jnp.stack([cnt_a, pad_a // ALIGN, off_a,
-                      cnt_d, pad_d // ALIGN, off_d,
-                      ident, jnp.zeros_like(cnt_a)], axis=1)
-    return meta, total_a, skip, dead_end
-
-
-def _ranks(alive_f, dead_f, cb: int, klt=None):
-    """Exclusive prefix counts of alive/dead along lanes via a one-hot
-    lower-triangular matmul (exact: bf16 0/1 products, f32 accumulation).
-    alive_f/dead_f: [1, CB] f32 0/1.  Returns (rank_a, rank_d): [1, CB] f32.
-    `klt`: optional precomputed [CB, CB] bf16 strict-lower matrix (kernels
-    build it ONCE into persistent scratch — per-chunk iota builds measure
-    ~1 us each at CB=512)."""
-    if klt is None:
-        sub = jax.lax.broadcasted_iota(jnp.int32, (cb, cb), 0)
-        lane = jax.lax.broadcasted_iota(jnp.int32, (cb, cb), 1)
-        klt = (lane < sub).astype(BF16)               # KLT[out, contract]
-    masks = jnp.concatenate([alive_f, dead_f], axis=0).astype(BF16)  # [2, CB]
-    ranks = jax.lax.dot_general(
-        masks, klt, (((1,), (1,)), ((), ())),
-        preferred_element_type=F32)                   # [2, CB]
-    return ranks[0:1], ranks[1:2]
-
-
-def _onehot(rank, mask_f, cb: int, sub_f=None):
-    """Permutation matrix M[dst(sublane), src(lane)] = 1 iff mask[src] and
-    rank[src] == dst.  Rows dst >= count are all-zero (pad lanes read 0).
-    `sub_f`: optional precomputed [CB, CB] f32 sublane-index iota (rank
-    values are exact small integers, so the f32 compare is exact)."""
-    if sub_f is None:
-        sub = jax.lax.broadcasted_iota(jnp.int32, (cb, cb), 0)
-        return ((sub == jnp.broadcast_to(rank.astype(jnp.int32), (cb, cb)))
-                & (jnp.broadcast_to(mask_f, (cb, cb)) != 0.0)).astype(BF16)
-    return ((sub_f == jnp.broadcast_to(rank, (cb, cb)))
-            & (jnp.broadcast_to(mask_f, (cb, cb)) != 0.0)).astype(BF16)
-
-
-def _gather_lanes(vals, idx_f, cb: int):
-    """out[r, l] = vals[r, idx[l]] — tile-blocked lane gather.
-
-    Mosaic's dynamic_gather only lowers when the gathered dim fits one vreg
-    (128 lanes), so the [cb]-wide gather is built from (cb/128)^2 in-tile
-    take_along_axis calls + in-bounds selects.  Bits move verbatim (no
-    matmul), so this is bit-exact for ARBITRARY f32 including denormals,
-    +-inf and NaN — the preferred form for any gather-shaped permutation
-    (the inverse/expansion direction, where each output lane KNOWS its
-    source index).  A scatter-shaped forward move can be converted to
-    this form by recovering its source-index map with one tiny matmul
-    (_src_index_from_onehot); whether that beats the byte-split one-hot
-    matmul (_permute) is a VPU-vs-MXU balance question — see
-    ops/intersect_perlane (gather iff multi-bank, measured) and the
-    compact kernel (always gather)."""
-    T = cb // 128
-    idx_i = idx_f.astype(jnp.int32)                   # [1, cb]
-    outs = []
-    for t in range(T):
-        idx_t = idx_i[:, t * 128:(t + 1) * 128]       # [1, 128]
-        acc = None
-        for s in range(T):
-            rel = idx_t - s * 128
-            inb = (rel >= 0) & (rel < 128)
-            relc = jnp.clip(rel, 0, 127)
-            src = vals[:, s * 128:(s + 1) * 128]      # [rows, 128]
-            g = jnp.take_along_axis(
-                src, jnp.broadcast_to(relc, src.shape), axis=1)
-            acc = g if acc is None else jnp.where(inb, g, acc)
-        outs.append(acc)
-    return jnp.concatenate(outs, axis=1)
-
-
-def _src_index_from_onehot(M, cb: int):
-    """Source-index map of a FULL one-hot permutation M[dst, src]:
-    srcidx[dst] = the src lane M routes there, recovered by pushing the
-    lane iota (two exact byte planes, lane ids < 2^16) through M on the
-    MXU.  With it, a scatter-shaped forward permutation becomes a
-    tile-blocked lane GATHER (bits verbatim) instead of byte-splitting
-    every payload row through the MXU."""
-    lane_int = jax.lax.broadcasted_iota(jnp.int32, (1, cb), 1)
-    lane_lo = (lane_int & 255).astype(F32).astype(BF16)
-    lane_hi = jax.lax.shift_right_logical(
-        lane_int, 8).astype(F32).astype(BF16)
-    planes = jax.lax.dot_general(
-        jnp.concatenate([lane_lo, lane_hi], axis=0), M,
-        (((1,), (1,)), ((), ())), preferred_element_type=F32)   # [2, cb]
-    return planes[0:1] + F32(256.0) * planes[1:2]
-
-
-def _to_bytes(vals):
-    """f32 [rows, CB] -> bf16 byte planes [4*rows, CB] (each value 0..255,
-    exact in bf16)."""
-    u = jax.lax.bitcast_convert_type(vals, jnp.uint32)
-    planes = [jnp.right_shift(u, jnp.uint32(8 * k)) & jnp.uint32(0xFF)
-              for k in range(4)]
-    # Mosaic has no direct uint32->bf16 cast; hop through int32/f32 (values
-    # are 0..255, every step exact).
-    return jnp.concatenate(
-        [p.astype(jnp.int32).astype(F32).astype(BF16) for p in planes],
-        axis=0)
-
-
-def _from_bytes(parts, rows: int):
-    """Inverse of _to_bytes after the one-hot matmul: parts f32 [4*rows, CB]
-    holding exact integers 0..255 -> f32 [rows, CB] with the original bits."""
-    u = parts.astype(jnp.int32).astype(jnp.uint32)
-    out = u[0:rows]
-    for k in range(1, 4):
-        out = out | jnp.left_shift(u[k * rows:(k + 1) * rows],
-                                   jnp.uint32(8 * k))
-    return jax.lax.bitcast_convert_type(out, F32)
-
-
-#: permutation matmul flavor.  "f32" (a single fp32-HIGHEST matmul per
-#: permute, ~3x fewer MXU passes + no byte pack/unpack) was built and
-#: MEASURED NON-EXACT: the matmul path flushes DENORMAL f32 payloads to
-#: zero (max diff ~1.1e-38 on full-entropy tests, relative diff 1.0), and
-#: 0 * inf would leak NaN across lanes through the MXU accumulation.  The
-#: byte-split domain is immune to both by construction (every plane is an
-#: exact small integer), so it remains the default and the contract stays
-#: "bit-exact for ARBITRARY f32 payloads".
-PERMUTE_MODE = "bytes"
-
-
-def _permute(vals, onehot, compacting: bool, mode=None):
-    """Apply the one-hot permutation to f32 payload rows, bit-exactly.
-
-    compacting=True:  out[r, dst] = vals[r, src(dst)]   (vals @ M^T)
-    compacting=False: out[r, src] = vals[r, dst(src)]   (vals @ M)
-    """
-    dims = (((1,), (1,)), ((), ())) if compacting else (((1,), (0,)), ((), ()))
-    if (mode or PERMUTE_MODE) == "f32":
-        return jax.lax.dot_general(
-            vals, onehot.astype(F32), dims,
-            precision=jax.lax.Precision.HIGHEST,
-            preferred_element_type=F32)
-    rows = vals.shape[0]
-    vb = _to_bytes(vals)                              # [4*rows, CB] bf16
-    parts = jax.lax.dot_general(vb, onehot, dims,
-                                preferred_element_type=F32)
-    return _from_bytes(parts, rows)
-
-
-# Dynamic-offset DMA uses tile-granular 3-D views [rows, NT, 128]: Mosaic
-# rejects a dynamic LANE-offset slice of a 2-D [16, R] memref, but accepts a
-# dynamic slice of the middle (tile) dimension with the 128-lane minor dim
-# kept whole (measured on-chip this round, scripts/probe_dma.py).
-
-def _tiles(ref2d, val2d, n: int):
-    """Copy n 128-lane tiles of a [rows, CB] value into a [rows, CBT, 128]
-    scratch ref (static vector moves)."""
-    for t in range(n):
-        ref2d[:, t, :] = val2d[:, t * ALIGN:(t + 1) * ALIGN]
-
-
-def _untile(ref3d, n: int):
-    """[rows, CBT, 128] scratch -> [rows, n*128] value."""
-    return jnp.concatenate([ref3d[:, t, :] for t in range(n)], axis=1)
-
-
-def _seg_read(src3, off, case, dst_ref, sem, max_case: int):
-    """DMA src3[:, off/128 : off/128+case, :] -> dst_ref[:, :case, :]."""
-    off_t = off // ALIGN
-    for k in range(1, max_case + 1):
-        @pl.when(case == k)
-        def _(k=k):
-            cp = pltpu.make_async_copy(
-                src3.at[:, pl.ds(off_t, k), :],
-                dst_ref.at[:, 0:k, :], sem)
-            cp.start()
-            cp.wait()
-
-
-def _build_iota_scratch(klt_s, sub_s, cb: int):
-    """Fill the persistent [CB, CB] helpers once (grid step 0): strict-lower
-    bf16 matrix for rank matmuls + f32 sublane iota for one-hot builds."""
-    @pl.when(pl.program_id(0) == 0)
-    def _():
-        sub = jax.lax.broadcasted_iota(jnp.int32, (cb, cb), 0)
-        lane = jax.lax.broadcasted_iota(jnp.int32, (cb, cb), 1)
-        klt_s[:] = (lane < sub).astype(BF16)
-        sub_s[:] = sub.astype(F32)
-
-
-def _kernel_compact(meta_ref, st_ref, zeros_in, dead_in, out_hbm, dead_hbm,
-                    ca, cd, sem_a, sem_d, klt_s, sub_s, pend, *, cb: int):
-    """Forward pass, grid (NC,): compact chunk i's survivors to the global
-    survivor prefix and harvest its retired rays into the dead array.
-    zeros_in/dead_in are the aliased input views of the two outputs.
-
-    Segment writes are PIPELINED across grid steps: each chunk STARTS its
-    DMAs and returns; the next chunk that needs the scratch buffer waits
-    for the in-flight copy right before refilling it (after its own
-    rank/gather compute, so the copy latency overlaps that compute), and
-    the last grid step drains both streams.  The pending copy's (case,
-    off) ride an SMEM scratch so the wait can recreate the exact
-    descriptor — a DMA wait must match the copy it waits for, and the
-    previous issuer can be any earlier chunk (skipped chunks issue
-    nothing).  The synchronous form measured ~0.8 us/chunk at 12k+ chunks
-    on the first boundary (compact 12.9 ms of the 104 ms teapot_2k
-    program).
-
-    Full chunks short-circuit the permutation machinery: a chunk whose
-    lanes are ALL alive (interior object tiles) or ALL dead (sky tiles —
-    over half of teapot_2k's boundary-0 chunks) has the identity
-    permutation, so the block moves without ranks/one-hot/gather."""
-    del zeros_in, dead_in
-    pid = pl.program_id(0)
-    row = jax.lax.rem(pid, 8)
-    cnt_a = meta_ref[row, M_CNT_A]
-    case_a = meta_ref[row, M_CASE_A]
-    off_a = meta_ref[row, M_OFF_A]
-    cnt_d = meta_ref[row, M_CNT_D]
-    case_d = meta_ref[row, M_CASE_D]
-    off_d = meta_ref[row, M_OFF_D]
-    ident = meta_ref[row, M_IDENT]
-    CBT = cb // ALIGN
-
-    _build_iota_scratch(klt_s, sub_s, cb)
-
-    @pl.when(pid == 0)
-    def _init_pend():
-        pend[0, 0] = 0                                   # pending case (a)
-        pend[0, 2] = 0                                   # pending case (d)
-
-    def wait_a():
-        for k in range(1, CBT + 1):
-            @pl.when(pend[0, 0] == k)
-            def _(k=k):
-                pltpu.make_async_copy(
-                    ca.at[:, 0:k, :],
-                    out_hbm.at[:, pl.ds(pend[0, 1], k), :], sem_a).wait()
-        pend[0, 0] = 0
-
-    def wait_d():
-        for k in range(1, CBT + 1):
-            @pl.when(pend[0, 2] == k)
-            def _(k=k):
-                pltpu.make_async_copy(
-                    cd.at[:, 0:k, :],
-                    dead_hbm.at[:, pl.ds(pend[0, 3], k), :], sem_d).wait()
-        pend[0, 2] = 0
-
-    def start_a(off, case):
-        _seg_start(ca, out_hbm, off, case, sem_a, CBT)
-        pend[0, 0] = case
-        pend[0, 1] = off // ALIGN
-
-    def start_d(off, case):
-        _seg_start(cd, dead_hbm, off, case, sem_d, CBT)
-        pend[0, 2] = case
-        pend[0, 3] = off // ALIGN
-
-    @pl.when((ident != 0) & (cnt_a + cnt_d > 0))
-    def _identity():
-        # overflow wave: pass the chunk through unpermuted, harvest nothing
-        # (the cumulative dead row keeps retired rays safe for a later wave)
-        wait_a()
-        _tiles(ca, st_ref[:], CBT)
-        start_a(pid * cb, jnp.int32(CBT))
-
-    @pl.when((ident == 0) & (cnt_a + cnt_d > 0))
-    def _busy():
-        full_a = cnt_a == cb                  # whole chunk survives
-        full_d = cnt_d == cb                  # whole chunk retired (sky)
-
-        @pl.when(full_a)
-        def _fast_alive():
-            wait_a()
-            _tiles(ca, jnp.concatenate(
-                [st_ref[0:ROW_CODE],
-                 jnp.zeros((STATE_ROWS - ROW_CODE, cb), F32)], axis=0), CBT)
-            start_a(off_a, case_a)
-
-        @pl.when(full_d)
-        def _fast_dead():
-            wait_d()
-            _tiles(cd, st_ref[ROW_ACC:ROW_ACC + 8], CBT)
-            start_d(off_d, case_d)
-
-        @pl.when(jnp.logical_not(full_a | full_d))
-        def _partial():
-            st = st_ref[:]                               # [16, CB]
-            alive_f = (st[ROW_ALIVE:ROW_ALIVE + 1, :] != 0.0).astype(F32)
-            dead_f = (st[ROW_DEAD:ROW_DEAD + 1, :] != 0.0).astype(F32)
-            rank_a, rank_d = _ranks(alive_f, dead_f, cb, klt_s[:])
-
-            # The forward permutation is scatter-shaped, but its SOURCE-
-            # INDEX map is recoverable with a tiny matmul
-            # (_src_index_from_onehot), then the payload rows move by a
-            # tile-blocked GATHER (bits verbatim) instead of byte-splitting
-            # every payload row through the MXU (was 48-96 bf16 planes per
-            # chunk).
-            lane_int = jax.lax.broadcasted_iota(jnp.int32, (1, cb), 1)
-
-            def src_index(rank, mask_f):
-                return _src_index_from_onehot(
-                    _onehot(rank, mask_f, cb, sub_s[:]), cb)
-
-            @pl.when(cnt_a > 0)
-            def _alive():
-                # dst lanes >= cnt_a get zeros.  Only the 12 meaningful
-                # state rows move (spares 12..15 are never read after a
-                # compaction).
-                srcidx = src_index(rank_a, alive_f)
-                dst_live = lane_int < cnt_a
-                p12 = jnp.where(
-                    dst_live, _gather_lanes(st[0:ROW_CODE], srcidx, cb),
-                    0.0)
-                wait_a()
-                _tiles(ca, jnp.concatenate(
-                    [p12, jnp.zeros((STATE_ROWS - ROW_CODE, cb), F32)],
-                    axis=0), CBT)
-                start_a(off_a, case_a)
-
-            @pl.when(cnt_d > 0)
-            def _dead():
-                # the dead array keeps only the 8-row payload (rows 8..15)
-                srcidx = src_index(rank_d, dead_f)
-                dst_live = lane_int < cnt_d
-                p8 = jnp.where(
-                    dst_live,
-                    _gather_lanes(st[ROW_ACC:ROW_ACC + 8], srcidx, cb), 0.0)
-                wait_d()
-                _tiles(cd, p8, CBT)
-                start_d(off_d, case_d)
-
-    @pl.when(pid == pl.num_programs(0) - 1)
-    def _drain():
-        wait_a()
-        wait_d()
-
-
-@functools.partial(jax.jit, static_argnames=("cb", "interpret"))
-def compact_pallas(state, dead_arr, meta, cb: int = DEFAULT_CB,
-                   interpret: bool = False, grid_live=None):
-    """Apply one wave's compaction.  state: [16, R]; dead_arr: [8, RD]
-    (threaded through waves, donated); meta from compact_meta.
-    Returns (new_state [16, R] — survivor prefix + zero gaps, new dead_arr).
-
-    grid_live: optional TRACED int32 lane extent of the INPUT's content
-    (the previous boundary's survivor prefix) — a Mosaic dynamic grid
-    visits only ceil(grid_live/cb) chunks.  Chunks past it are all gap
-    lanes (cnt_a = cnt_d = 0: nothing to move or harvest) and their output
-    blocks keep the aliased zeros — bit-identical to visiting them.
-    """
-    R = state.shape[1]
-    RD = dead_arr.shape[1]
-    NC = R // cb
-    CBT = cb // ALIGN
-    NC8 = -(-NC // 8) * 8
-    meta8 = jnp.zeros((NC8, META_COLS), jnp.int32).at[:NC].set(meta)
-
-    zeros3 = jnp.zeros((STATE_ROWS, R // ALIGN, ALIGN), F32)
-    dead3 = dead_arr.reshape(8, RD // ALIGN, ALIGN)
-
-    if grid_live is None:
-        grid_n = NC
-    else:
-        grid_n = jnp.clip((grid_live.astype(jnp.int32) + cb - 1) // cb,
-                          1, NC)
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=0,
-        grid=(grid_n,),
-        in_specs=[
-            pl.BlockSpec((8, META_COLS), lambda i: (i // 8, 0),
-                         memory_space=pltpu.SMEM),
-            pl.BlockSpec((STATE_ROWS, cb), lambda i: (0, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec(memory_space=pl.ANY),   # zeros -> aliased out
-            pl.BlockSpec(memory_space=pl.ANY),   # dead  -> aliased out
-        ],
-        out_specs=[
-            pl.BlockSpec(memory_space=pl.ANY),
-            pl.BlockSpec(memory_space=pl.ANY),
-        ],
-        scratch_shapes=[
-            pltpu.VMEM((STATE_ROWS, CBT, ALIGN), F32),
-            pltpu.VMEM((8, CBT, ALIGN), F32),
-            pltpu.SemaphoreType.DMA,
-            pltpu.SemaphoreType.DMA,
-            pltpu.VMEM((cb, cb), BF16),
-            pltpu.VMEM((cb, cb), F32),
-            pltpu.SMEM((1, 8), jnp.int32),   # pending-DMA (case, off) x 2
-        ],
-    )
-
-    new_state3, new_dead3 = pl.pallas_call(
-        functools.partial(_kernel_compact, cb=cb),
-        grid_spec=grid_spec,
-        out_shape=[
-            jax.ShapeDtypeStruct(zeros3.shape, F32),
-            jax.ShapeDtypeStruct(dead3.shape, F32),
-        ],
-        input_output_aliases={2: 0, 3: 1},
-        interpret=interpret,
-    )(meta8, state, zeros3, dead3)
-    return (new_state3.reshape(STATE_ROWS, R),
-            new_dead3.reshape(8, RD))
-
-
-def _kernel_expand(meta_ref, masks_ref, y_hbm, dead_hbm, out_ref, sa, sd,
-                   sem_a, sem_d, klt_s, sub_s, *, cb: int):
-    """Inverse pass, grid (NC,): original lane i of this chunk re-reads its
-    payload rows from the compacted survivor prefix (alive) or the dead
-    array (retired); gap lanes get zeros.  Row count follows the y/output
-    block shape (the engine reassembles only accum+dead = 4 rows; the
-    compact tests exercise the full 8)."""
-    pid = pl.program_id(0)
-    row = jax.lax.rem(pid, 8)
-    cnt_a = meta_ref[row, M_CNT_A]
-    case_a = meta_ref[row, M_CASE_A]
-    off_a = meta_ref[row, M_OFF_A]
-    cnt_d = meta_ref[row, M_CNT_D]
-    case_d = meta_ref[row, M_CASE_D]
-    off_d = meta_ref[row, M_OFF_D]
-    ident = meta_ref[row, M_IDENT]
-
-    _build_iota_scratch(klt_s, sub_s, cb)
-    out_ref[:] = jnp.zeros_like(out_ref)
-
-    @pl.when(ident != 0)
-    def _identity():
-        # overflow wave was a pass-through: read the block back unpermuted
-        ntile = cb // ALIGN
-        _seg_read(y_hbm, pid * cb, ntile, sa, sem_a, ntile)
-        out_ref[:] = _untile(sa, ntile)
-
-    @pl.when((ident == 0) & (cnt_a + cnt_d > 0))
-    def _busy():
-        ntile = cb // ALIGN
-        # START both segment reads first so their latency overlaps the
-        # rank matmul below (the synchronous read-then-compute form paid
-        # the DMA round trip serially every chunk)
-        @pl.when(cnt_a > 0)
-        def _ra():
-            _seg_read_start(y_hbm, off_a, case_a, sa, sem_a, ntile)
-
-        @pl.when(cnt_d > 0)
-        def _rd():
-            _seg_read_start(dead_hbm, off_d, case_d, sd, sem_d, ntile)
-
-        full_a = cnt_a == cb
-        full_d = cnt_d == cb
-
-        @pl.when(full_a)
-        def _fast_alive():
-            # every lane alive: rank == lane, the segment IS the chunk
-            _seg_read_wait(y_hbm, off_a, case_a, sa, sem_a, ntile, cnt_a)
-            out_ref[:] = _untile(sa, ntile)
-
-        @pl.when(full_d)
-        def _fast_dead():
-            _seg_read_wait(dead_hbm, off_d, case_d, sd, sem_d, ntile, cnt_d)
-            out_ref[:] = _untile(sd, ntile)
-
-        @pl.when(jnp.logical_not(full_a | full_d))
-        def _partial():
-            alive_f = (masks_ref[0:1, :] != 0.0).astype(F32)
-            dead_f = (masks_ref[1:2, :] != 0.0).astype(F32)
-            rank_a, rank_d = _ranks(alive_f, dead_f, cb, klt_s[:])
-            _seg_read_wait(y_hbm, off_a, case_a, sa, sem_a, ntile, cnt_a)
-            _seg_read_wait(dead_hbm, off_d, case_d, sd, sem_d, ntile,
-                           cnt_d)
-
-            # No scratch zero-fill needed: the gather form below moves
-            # bits verbatim (no arithmetic touches unread lanes) and the
-            # jnp.where selects mask every lane whose gather landed past
-            # its segment — uninitialized-scratch lanes are never
-            # observed.  (The old one-hot MXU path NEEDED zeros: 0 * inf
-            # leaked NaN through accumulation.)
-            #
-            # Expansion is GATHER-shaped: rank_a/rank_d[lane] is each
-            # lane's source index in its segment, so the inverse
-            # permutation is a tile-blocked lane gather — no one-hot
-            # build, no byte matmuls, bits verbatim (_gather_lanes).
-            ga = _gather_lanes(_untile(sa, ntile), rank_a, cb)
-            gd = _gather_lanes(_untile(sd, ntile), rank_d, cb)
-            # gap lanes (neither alive nor dead) read zero — the one-hot
-            # form zeroed them via its mask; the gather form selects
-            # explicitly
-            out = jnp.where(
-                jnp.broadcast_to(alive_f != 0.0, ga.shape), ga,
-                jnp.where(jnp.broadcast_to(dead_f != 0.0, gd.shape),
-                          gd, 0.0))
-            out_ref[:] = out
-
-
-@functools.partial(jax.jit, static_argnames=("cb", "interpret"))
-def expand_pallas(y, dead_arr, masks, meta, cb: int = DEFAULT_CB,
-                  interpret: bool = False, grid_live=None):
-    """Reverse one wave's compaction for the payload rows.
-
-    y: [ROWS, R] in POST-compaction order (ROWS <= 8, leading rows of the
-    state-rows-8.. payload — the engine passes 4: accum + dead flag);
-    masks: [2, R] (alive; dead rows recorded PRE-compaction); meta: that
-    wave's meta.  Returns [ROWS, R] in PRE-compaction order.
-
-    grid_live: optional TRACED int32 lane extent of the OUTPUT's content
-    (the prefix the rays lived in BEFORE this boundary compacted them).
-    A dynamic grid visits only ceil(grid_live/cb) chunks; the unvisited
-    tail is GARBAGE (no alias) — callers may only pass grid_live when the
-    consumer never reads past it (the expansion chain's next step reads
-    y at segment offsets < its own total_a <= this prefix; the FINAL
-    boundary-0 expand must pass None so the whole image is written).
-    """
-    rows = y.shape[0]
-    R = y.shape[1]
-    RD = dead_arr.shape[1]
-    NC = R // cb
-    CBT = cb // ALIGN
-    NC8 = -(-NC // 8) * 8
-    meta8 = jnp.zeros((NC8, META_COLS), jnp.int32).at[:NC].set(meta)
-
-    y3 = y.reshape(rows, R // ALIGN, ALIGN)
-    dead3 = dead_arr[0:rows].reshape(rows, RD // ALIGN, ALIGN)
-
-    if grid_live is None:
-        grid_n = NC
-    else:
-        grid_n = jnp.clip((grid_live.astype(jnp.int32) + cb - 1) // cb,
-                          1, NC)
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=0,
-        grid=(grid_n,),
-        in_specs=[
-            pl.BlockSpec((8, META_COLS), lambda i: (i // 8, 0),
-                         memory_space=pltpu.SMEM),
-            pl.BlockSpec((2, cb), lambda i: (0, i), memory_space=pltpu.VMEM),
-            pl.BlockSpec(memory_space=pl.ANY),   # y stays in HBM
-            pl.BlockSpec(memory_space=pl.ANY),   # dead stays in HBM
-        ],
-        out_specs=[
-            pl.BlockSpec((rows, cb), lambda i: (0, i),
-                         memory_space=pltpu.VMEM),
-        ],
-        scratch_shapes=[
-            pltpu.VMEM((rows, CBT, ALIGN), F32),
-            pltpu.VMEM((rows, CBT, ALIGN), F32),
-            pltpu.SemaphoreType.DMA,
-            pltpu.SemaphoreType.DMA,
-            pltpu.VMEM((cb, cb), BF16),
-            pltpu.VMEM((cb, cb), F32),
-        ],
-    )
-
-    out = pl.pallas_call(
-        functools.partial(_kernel_expand, cb=cb),
-        grid_spec=grid_spec,
-        out_shape=[jax.ShapeDtypeStruct((rows, R), F32)],
-        interpret=interpret,
-    )(meta8, masks, y3, dead3)[0]
-    return out
-
-
-# ----------------------------------------------------------------------
-# numpy oracle (differential tests)
-
-def compact_oracle(state, dead_arr, cb: int, dead_base: int):
-    """Reference implementation of one forward compaction in numpy.
-    dead_arr: [8, RD] (payload rows 8..15 of retired rays).
-    Returns (new_state, new_dead, meta, total_a, overflow, dead_end).
-    """
-    state = np.asarray(state)
-    R = state.shape[1]
-    NC = R // cb
-    alive = state[ROW_ALIVE] != 0
-    dead = state[ROW_DEAD] != 0
-
-    new_state = np.zeros_like(state)
-    new_dead = np.array(dead_arr, copy=True)
-    meta = np.zeros((NC, META_COLS), np.int32)
-
-    off_a = 0
-    off_d = int(dead_base)
-    for c in range(NC):
-        sl = slice(c * cb, (c + 1) * cb)
-        ia = np.nonzero(alive[sl])[0] + c * cb
-        idd = np.nonzero(dead[sl])[0] + c * cb
-        cnt_a, cnt_d = len(ia), len(idd)
-        pad_a = -(-cnt_a // ALIGN) * ALIGN
-        pad_d = -(-cnt_d // ALIGN) * ALIGN
-        meta[c] = [cnt_a, pad_a // ALIGN, off_a,
-                   cnt_d, pad_d // ALIGN, off_d, 0, 0]
-        if off_a + cnt_a <= R:
-            new_state[:, off_a:off_a + cnt_a] = state[:, ia]
-            # kernel contract: spare rows 12..15 are not carried
-            new_state[ROW_CODE:, off_a:off_a + cnt_a] = 0.0
-        new_dead[:, off_d:off_d + cnt_d] = state[ROW_ACC:ROW_ACC + 8, idd]
-        off_a += pad_a
-        off_d += pad_d
-
-    overflow = off_a > R
-    if overflow:
-        # identity pass-through (M_IDENT): nothing moves, nothing harvested
-        meta[:, M_IDENT] = 1
-        new_state = state.copy()
-        new_dead = np.array(dead_arr, copy=True)
-    return new_state, new_dead, meta, off_a, overflow, off_d
-
-
-def expand_oracle(y, dead_arr, alive, dead, meta, cb: int):
-    """Reference inverse in numpy (8-row payload)."""
-    y = np.asarray(y)
-    R = y.shape[1]
-    NC = R // cb
-    out = np.zeros((8, R), y.dtype)
-    for c in range(NC):
-        sl = slice(c * cb, (c + 1) * cb)
-        ia = np.nonzero(np.asarray(alive[sl]) != 0)[0] + c * cb
-        idd = np.nonzero(np.asarray(dead[sl]) != 0)[0] + c * cb
-        off_a = meta[c, M_OFF_A]
-        off_d = meta[c, M_OFF_D]
-        out[:, ia] = y[:, off_a:off_a + len(ia)]
-        out[:, idd] = np.asarray(dead_arr)[:, off_d:off_d + len(idd)]
-    return out
-
-
-# ----------------------------------------------------------------------
-# Bucketed compaction ("wavefront compaction + ray sorting")
-
-def compact_meta_buckets(code, cb: int, dead_base, R: int):
-    """Per-chunk, per-bucket counts/offsets for the octant-sorted layout.
-
-    code: [R] f32 (0 gap / 1 dead / 2+q alive-octant-q).  Survivor segments
-    are laid out BUCKET-MAJOR (all of octant 0, then octant 1, ...), each
-    (chunk, bucket) segment 128-aligned; within a bucket, chunks appear in
-    order, so spatial coherence of the source order is preserved.
-
-    Returns (meta [NC, META9_COLS] int32, total_a, overflow, dead_end).
-    """
-    NC = R // cb
-    codes = code.reshape(NC, cb)
-    cnts = []
-    for q in range(NB):
-        cnts.append(jnp.sum(codes == float(2 + q), axis=1, dtype=jnp.int32))
-    cnt_q = jnp.stack(cnts, axis=1)                     # [NC, NB]
-    cnt_d = jnp.sum(codes == 1.0, axis=1, dtype=jnp.int32)
-
-    pad_q = ((cnt_q + (ALIGN - 1)) // ALIGN) * ALIGN
-    pad_d = ((cnt_d + (ALIGN - 1)) // ALIGN) * ALIGN
-
-    tot_q = jnp.sum(pad_q, axis=0)                      # [NB]
-    base_q = jnp.cumsum(tot_q) - tot_q                  # bucket-major bases
-    within = jnp.cumsum(pad_q, axis=0) - pad_q          # [NC, NB]
-    off_q = base_q[None, :] + within
-
-    cs_d = jnp.cumsum(pad_d)
-    off_d = dead_base.astype(jnp.int32) + cs_d - pad_d
-    dead_end = dead_base.astype(jnp.int32) + cs_d[-1]
-
-    total_a = jnp.sum(tot_q)
-    overflow = total_a > R
-    busy = ((jnp.sum(cnt_q, axis=1) + cnt_d) > 0).astype(jnp.int32)
-
-    cols = []
-    for q in range(NB):
-        cols += [cnt_q[:, q], pad_q[:, q] // ALIGN, off_q[:, q]]
-    cols += [cnt_d, pad_d // ALIGN, off_d, busy]
-    meta = jnp.stack(cols, axis=1)                      # [NC, 28]
-    meta = jnp.pad(meta, ((0, 0), (0, META9_COLS - meta.shape[1])))
-    return meta, total_a, overflow, dead_end
-
-
-def _kernel_compact_b(meta_ref, st_ref, zeros_in, dead_in, out_hbm, dead_hbm,
-                      ca, cd, sems, sem_d, *, cb: int):
-    """Bucketed forward pass, grid (NC,).  Per chunk: rank every bucket,
-    permute each bucket's members to its own compacted buffer, and DMA each
-    to its global (bucket-major) segment.  All bucket DMAs are issued
-    async and drained at the end of the chunk so their latencies overlap."""
-    del zeros_in, dead_in
-    row = jax.lax.rem(pl.program_id(0), 8)
-    ntile = cb // ALIGN
-
-    @pl.when(meta_ref[row, M9_BUSY] != 0)
-    def _busy():
-        st = st_ref[:]                                   # [16, CB]
-        code = st[ROW_CODE:ROW_CODE + 1, :]
-        masks = jnp.concatenate(
-            [(code == float(2 + q)).astype(F32) for q in range(NB)]
-            + [(code == 1.0).astype(F32)], axis=0)       # [9, CB]
-        sub = jax.lax.broadcasted_iota(jnp.int32, (cb, cb), 0)
-        lane = jax.lax.broadcasted_iota(jnp.int32, (cb, cb), 1)
-        klt = (lane < sub).astype(BF16)
-        ranks = jax.lax.dot_general(
-            masks.astype(BF16), klt, (((1,), (1,)), ((), ())),
-            preferred_element_type=F32)                  # [9, CB]
-        vb = _to_bytes(st)                               # [64, CB] bf16
-        vbd = _to_bytes(st[ROW_ACC:ROW_ACC + 8])         # [32, CB] bf16
-
-        for q in range(NB):
-            cnt = meta_ref[row, 3 * q]
-            case = meta_ref[row, 3 * q + 1]
-            off = meta_ref[row, 3 * q + 2]
-
-            @pl.when(cnt > 0)
-            def _bucket(q=q, case=case, off=off):
-                m = _onehot(ranks[q:q + 1], masks[q:q + 1], cb)
-                parts = jax.lax.dot_general(
-                    vb, m, (((1,), (1,)), ((), ())),
-                    preferred_element_type=F32)
-                _tiles(ca.at[q], _from_bytes(parts, STATE_ROWS), ntile)
-                _seg_start(ca.at[q], out_hbm, off, case, sems.at[q], ntile)
-
-        cnt_d = meta_ref[row, M9_DEAD]
-
-        @pl.when(cnt_d > 0)
-        def _dead():
-            m = _onehot(ranks[NB:NB + 1], masks[NB:NB + 1], cb)
-            parts = jax.lax.dot_general(
-                vbd, m, (((1,), (1,)), ((), ())), preferred_element_type=F32)
-            _tiles(cd, _from_bytes(parts, 8), ntile)
-            _seg_start(cd, dead_hbm, meta_ref[row, M9_DEAD + 2],
-                       meta_ref[row, M9_DEAD + 1], sem_d, ntile)
-
-        # drain all in-flight segment DMAs before the next chunk reuses
-        # the scratch buffers
-        for q in range(NB):
-            _seg_wait(ca.at[q], out_hbm, meta_ref[row, 3 * q + 2],
-                      meta_ref[row, 3 * q + 1], sems.at[q], ntile,
-                      meta_ref[row, 3 * q])
-        _seg_wait(cd, dead_hbm, meta_ref[row, M9_DEAD + 2],
-                  meta_ref[row, M9_DEAD + 1], sem_d, ntile,
-                  meta_ref[row, M9_DEAD])
-
-
-def _seg_start(src_ref, dst3, off, case, sem, max_case: int):
-    off_t = off // ALIGN
-    for k in range(1, max_case + 1):
-        @pl.when(case == k)
-        def _(k=k):
-            pltpu.make_async_copy(
-                src_ref.at[:, 0:k, :],
-                dst3.at[:, pl.ds(off_t, k), :], sem).start()
-
-
-def _seg_wait(src_ref, dst3, off, case, sem, max_case: int, cnt):
-    off_t = off // ALIGN
-    for k in range(1, max_case + 1):
-        @pl.when((case == k) & (cnt > 0))
-        def _(k=k):
-            pltpu.make_async_copy(
-                src_ref.at[:, 0:k, :],
-                dst3.at[:, pl.ds(off_t, k), :], sem).wait()
-
-
-def _seg_read_start(src3, off, case, dst_ref, sem, max_case: int):
-    off_t = off // ALIGN
-    for k in range(1, max_case + 1):
-        @pl.when(case == k)
-        def _(k=k):
-            pltpu.make_async_copy(
-                src3.at[:, pl.ds(off_t, k), :],
-                dst_ref.at[:, 0:k, :], sem).start()
-
-
-def _seg_read_wait(src3, off, case, dst_ref, sem, max_case: int, cnt):
-    off_t = off // ALIGN
-    for k in range(1, max_case + 1):
-        @pl.when((case == k) & (cnt > 0))
-        def _(k=k):
-            pltpu.make_async_copy(
-                src3.at[:, pl.ds(off_t, k), :],
-                dst_ref.at[:, 0:k, :], sem).wait()
-
-
-@functools.partial(jax.jit, static_argnames=("cb", "interpret"))
-def compact_pallas_buckets(state, dead_arr, meta, cb: int = DEFAULT_CB,
-                           interpret: bool = False):
-    """Bucketed (octant-sorted) forward compaction.  Same contract as
-    compact_pallas, but the survivor prefix is bucket-major by octant."""
-    R = state.shape[1]
-    RD = dead_arr.shape[1]
-    NC = R // cb
-    CBT = cb // ALIGN
-    NC8 = -(-NC // 8) * 8
-    meta8 = jnp.zeros((NC8, META9_COLS), jnp.int32).at[:NC].set(meta)
-
-    zeros3 = jnp.zeros((STATE_ROWS, R // ALIGN, ALIGN), F32)
-    dead3 = dead_arr.reshape(8, RD // ALIGN, ALIGN)
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=0,
-        grid=(NC,),
-        in_specs=[
-            pl.BlockSpec((8, META9_COLS), lambda i: (i // 8, 0),
-                         memory_space=pltpu.SMEM),
-            pl.BlockSpec((STATE_ROWS, cb), lambda i: (0, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec(memory_space=pl.ANY),
-            pl.BlockSpec(memory_space=pl.ANY),
-        ],
-        out_specs=[
-            pl.BlockSpec(memory_space=pl.ANY),
-            pl.BlockSpec(memory_space=pl.ANY),
-        ],
-        scratch_shapes=[
-            pltpu.VMEM((NB, STATE_ROWS, CBT, ALIGN), F32),
-            pltpu.VMEM((8, CBT, ALIGN), F32),
-            pltpu.SemaphoreType.DMA((NB,)),
-            pltpu.SemaphoreType.DMA,
-        ],
-    )
-
-    new_state3, new_dead3 = pl.pallas_call(
-        functools.partial(_kernel_compact_b, cb=cb),
-        grid_spec=grid_spec,
-        out_shape=[
-            jax.ShapeDtypeStruct(zeros3.shape, F32),
-            jax.ShapeDtypeStruct(dead3.shape, F32),
-        ],
-        input_output_aliases={2: 0, 3: 1},
-        interpret=interpret,
-    )(meta8, state, zeros3, dead3)
-    return (new_state3.reshape(STATE_ROWS, R), new_dead3.reshape(8, RD))
-
-
-def _kernel_expand_b(meta_ref, code_ref, y_hbm, dead_hbm, out_ref, sa, sd,
-                     sems, sem_d, *, cb: int):
-    """Bucketed inverse pass: every original lane re-reads its 8-row payload
-    from its bucket's compacted segment (or the dead array)."""
-    row = jax.lax.rem(pl.program_id(0), 8)
-    ntile = cb // ALIGN
-
-    out_ref[:] = jnp.zeros_like(out_ref)
-
-    @pl.when(meta_ref[row, M9_BUSY] != 0)
-    def _busy():
-        code = code_ref[0:1, :]
-        masks = jnp.concatenate(
-            [(code == float(2 + q)).astype(F32) for q in range(NB)]
-            + [(code == 1.0).astype(F32)], axis=0)       # [9, CB]
-        sub = jax.lax.broadcasted_iota(jnp.int32, (cb, cb), 0)
-        lane = jax.lax.broadcasted_iota(jnp.int32, (cb, cb), 1)
-        klt = (lane < sub).astype(BF16)
-        ranks = jax.lax.dot_general(
-            masks.astype(BF16), klt, (((1,), (1,)), ((), ())),
-            preferred_element_type=F32)
-
-        for q in range(NB):
-            @pl.when(meta_ref[row, 3 * q] > 0)
-            def _rq(q=q):
-                _seg_read_start(y_hbm, meta_ref[row, 3 * q + 2],
-                                meta_ref[row, 3 * q + 1], sa.at[q],
-                                sems.at[q], ntile)
-
-        @pl.when(meta_ref[row, M9_DEAD] > 0)
-        def _rd():
-            _seg_read_start(dead_hbm, meta_ref[row, M9_DEAD + 2],
-                            meta_ref[row, M9_DEAD + 1], sd, sem_d, ntile)
-
-        for q in range(NB):
-            _seg_read_wait(y_hbm, meta_ref[row, 3 * q + 2],
-                           meta_ref[row, 3 * q + 1], sa.at[q], sems.at[q],
-                           ntile, meta_ref[row, 3 * q])
-        _seg_read_wait(dead_hbm, meta_ref[row, M9_DEAD + 2],
-                       meta_ref[row, M9_DEAD + 1], sd, sem_d, ntile,
-                       meta_ref[row, M9_DEAD])
-
-        # disjoint buckets: each lane receives exactly one contribution
-        acc = None
-        for q in range(NB):
-            g = _permute(_untile(sa.at[q], ntile),
-                         _onehot(ranks[q:q + 1], masks[q:q + 1], cb),
-                         compacting=False)
-            acc = g if acc is None else _sum_exact(acc, g)
-        gd = _permute(_untile(sd, ntile),
-                      _onehot(ranks[NB:NB + 1], masks[NB:NB + 1], cb),
-                      compacting=False)
-        out_ref[:] = _sum_exact(acc, gd)
-
-
-def _sum_exact(a, b):
-    """Combine disjoint-support f32 payloads bit-exactly (a + b would round
-    -0.0 + x etc fine, but bitwise OR of the disjoint patterns is safer)."""
-    ua = jax.lax.bitcast_convert_type(a, jnp.uint32)
-    ub = jax.lax.bitcast_convert_type(b, jnp.uint32)
-    return jax.lax.bitcast_convert_type(ua | ub, F32)
-
-
-@functools.partial(jax.jit, static_argnames=("cb", "interpret"))
-def expand_pallas_buckets(y, dead_arr, code, meta, cb: int = DEFAULT_CB,
-                          interpret: bool = False):
-    """Reverse one bucketed compaction for the 8-row payload.
-    code: [1, R] f32 bucket codes recorded PRE-compaction."""
-    R = y.shape[1]
-    RD = dead_arr.shape[1]
-    NC = R // cb
-    CBT = cb // ALIGN
-    NC8 = -(-NC // 8) * 8
-    meta8 = jnp.zeros((NC8, META9_COLS), jnp.int32).at[:NC].set(meta)
-
-    y3 = y.reshape(8, R // ALIGN, ALIGN)
-    dead3 = dead_arr.reshape(8, RD // ALIGN, ALIGN)
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=0,
-        grid=(NC,),
-        in_specs=[
-            pl.BlockSpec((8, META9_COLS), lambda i: (i // 8, 0),
-                         memory_space=pltpu.SMEM),
-            pl.BlockSpec((1, cb), lambda i: (0, i), memory_space=pltpu.VMEM),
-            pl.BlockSpec(memory_space=pl.ANY),
-            pl.BlockSpec(memory_space=pl.ANY),
-        ],
-        out_specs=[
-            pl.BlockSpec((8, cb), lambda i: (0, i), memory_space=pltpu.VMEM),
-        ],
-        scratch_shapes=[
-            pltpu.VMEM((NB, 8, CBT, ALIGN), F32),
-            pltpu.VMEM((8, CBT, ALIGN), F32),
-            pltpu.SemaphoreType.DMA((NB,)),
-            pltpu.SemaphoreType.DMA,
-        ],
-    )
-
-    out = pl.pallas_call(
-        functools.partial(_kernel_expand_b, cb=cb),
-        grid_spec=grid_spec,
-        out_shape=[jax.ShapeDtypeStruct((8, R), F32)],
-        interpret=interpret,
-    )(meta8, code, y3, dead3)[0]
-    return out
-
-
-def compact_oracle_buckets(state, dead_arr, cb: int, dead_base: int):
-    """numpy reference for the bucketed forward pass."""
-    state = np.asarray(state)
-    R = state.shape[1]
-    NC = R // cb
-    code = state[ROW_CODE]
-
-    new_state = np.zeros_like(state)
-    new_dead = np.array(dead_arr, copy=True)
-    meta = np.zeros((NC, META9_COLS), np.int32)
-
-    # bucket-major bases
-    pad_q = np.zeros((NC, NB), np.int64)
-    for c in range(NC):
-        sl = code[c * cb:(c + 1) * cb]
-        for q in range(NB):
-            cnt = int((sl == 2 + q).sum())
-            pad_q[c, q] = -(-cnt // ALIGN) * ALIGN
-    base = np.concatenate([[0], np.cumsum(pad_q.sum(axis=0))])[:NB]
-
-    off_d = int(dead_base)
-    offs = base.copy().astype(np.int64)
-    for c in range(NC):
-        sl = slice(c * cb, (c + 1) * cb)
-        codes_c = code[sl]
-        busy = 0
-        for q in range(NB):
-            idx = np.nonzero(codes_c == 2 + q)[0] + c * cb
-            cnt = len(idx)
-            pad = -(-cnt // ALIGN) * ALIGN
-            meta[c, 3 * q:3 * q + 3] = [cnt, pad // ALIGN, offs[q]]
-            if offs[q] + cnt <= R:
-                new_state[:, offs[q]:offs[q] + cnt] = state[:, idx]
-            offs[q] += pad
-            busy += cnt
-        idd = np.nonzero(codes_c == 1)[0] + c * cb
-        cnt_d = len(idd)
-        pad_d = -(-cnt_d // ALIGN) * ALIGN
-        meta[c, M9_DEAD:M9_DEAD + 3] = [cnt_d, pad_d // ALIGN, off_d]
-        new_dead[:, off_d:off_d + cnt_d] = state[ROW_ACC:ROW_ACC + 8, idd]
-        off_d += pad_d
-        busy += cnt_d
-        meta[c, M9_BUSY] = 1 if busy else 0
-
-    total_a = int(base[NB - 1] + pad_q[:, NB - 1].sum()) if NB else 0
-    overflow = total_a > R
-    return new_state, new_dead, meta, total_a, overflow, off_d
-
-
-def expand_oracle_buckets(y, dead_arr, code, meta, cb: int):
-    """numpy reference for the bucketed inverse."""
-    y = np.asarray(y)
-    code = np.asarray(code).reshape(-1)
-    R = y.shape[1]
-    NC = R // cb
-    out = np.zeros((8, R), y.dtype)
-    for c in range(NC):
-        sl = slice(c * cb, (c + 1) * cb)
-        codes_c = code[sl]
-        for q in range(NB):
-            idx = np.nonzero(codes_c == 2 + q)[0] + c * cb
-            off = meta[c, 3 * q + 2]
-            out[:, idx] = y[:, off:off + len(idx)]
-        idd = np.nonzero(codes_c == 1)[0] + c * cb
-        off_d = meta[c, M9_DEAD + 2]
-        out[:, idd] = np.asarray(dead_arr)[:, off_d:off_d + len(idd)]
-    return out
+def expand(y, order):
+    """Inverse of `compact`: row i of y returns to row order[i]."""
+    return jnp.zeros_like(y).at[order].set(y, unique_indices=True)

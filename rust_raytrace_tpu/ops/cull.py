@@ -1,26 +1,16 @@
-"""Packet culling: conservative (ray chunk) x (page AABB) visibility masks.
+"""Ray/AABB slab tests and the (ray chunk) x (page AABB) cull.
 
-TPU-native replacement for the reference's per-ray octree query
+Replacement for the reference's per-ray octree query
 `get_all_objects_for_ray` (raytrace.rs:1052-1077), which walks the tree on the
 host for EVERY ray to build its ordered page list — fine for 64x64 images,
-hopeless for 3.7M rays/wave.  Here culling is done at ray-CHUNK granularity
-(one chunk = one kernel grid block of RB rays) with interval arithmetic:
+hopeless for 3.7M rays/wave.  `slab` is the per-ray test the trace kernel
+runs against bank and page boxes; `cull_mask_exact` reduces it over chunks
+of rays for the plain-XLA traversal and the engine's debug candidate sets.
 
-  A chunk is summarized by its origin AABB [olo, ohi] and direction AABB
-  [dlo, dhi].  A page with AABB [blo, bhi] survives iff some ray
-  (o in obox, d in dbox, t >= 0) can enter the Minkowski-expanded box
-  B' = [blo - ohi, bhi - olo] — tested per axis by computing the interval of
-  admissible t values and intersecting the three intervals.
-
-The test is CONSERVATIVE (never discards a page any chunk ray could hit), so
-the culled nearest-hit equals the brute-force result exactly; false positives
-only cost compute.  Primary-ray chunks are camera tiles (tight cones -> strong
-culling); bounce chunks benefit from compaction-time ray sorting.
-
-Runs as pure XLA (the [NC, NP] problem is tiny next to intersection).
+Both are CONSERVATIVE: the page boxes are inflated (ops/trace.BOX_PAD), so a
+page holding a ray's hit always passes and its entry bound never exceeds the
+hit distance; false positives only cost compute.
 """
-
-import functools
 
 import jax
 import jax.numpy as jnp
@@ -29,196 +19,53 @@ F32 = jnp.float32
 INF = jnp.inf
 
 
-def chunk_bounds(ot, dt, valid, ray_chunk: int):
-    """Per-chunk origin/direction AABBs.  ot, dt: [3, R] (R = NC * RB,
-    xyz-major — [R, 3] arrays lane-pad 42x on TPU), valid: [R] bool —
-    invalid (dead/padding) rays are excluded from bounds.
+def inv_dir(d):
+    """Slab-test reciprocal; a zero component maps to a huge finite value
+    (0 * inf would be NaN), which keeps the test conservative."""
+    return jnp.where(d == 0.0, F32(1e30), 1.0 / d)
 
-    Returns (olo, ohi, dlo, dhi): each [NC, 3] (small; fine to pad).  A chunk
-    with no valid rays gets inverted bounds -> every page test fails.
+
+def slab(o3, i3, lo3, hi3):
+    """Ray/AABB slab interval: (hit, entry) with entry = max(t_lo, 0)."""
+    tlo = thi = None
+    for o, i, lo, hi in zip(o3, i3, lo3, hi3):
+        t1 = (lo - o) * i
+        t2 = (hi - o) * i
+        a, b = jnp.minimum(t1, t2), jnp.maximum(t1, t2)
+        tlo = a if tlo is None else jnp.maximum(tlo, a)
+        thi = b if thi is None else jnp.minimum(thi, b)
+    return (tlo <= thi) & (thi >= 0.0), jnp.maximum(tlo, 0.0)
+
+
+def cull_mask_exact(ot, dt, valid, blo, bhi, ray_chunk: int,
+                    group: int = 64):
+    """Exact per-ray slab tests, OR/min-reduced per chunk: the tightest
+    chunk x page mask and each chunk's least entry distance per page.
+
+    ot, dt: [3, R]; valid: [R]; blo/bhi: [NP, 3] (empty pages: lo = +inf,
+    hi = -inf, never hit).  Pages are processed `group` at a time so the
+    [chunk, ray, page] temporaries stay bounded whatever XLA fuses.
+    Returns ([NC, NP] bool, [NC, NP] f32 with +inf where not hit).
     """
     R = ot.shape[1]
     NC = R // ray_chunk
-    o = ot.reshape(3, NC, ray_chunk)
-    d = dt.reshape(3, NC, ray_chunk)
-    v = valid.reshape(1, NC, ray_chunk)
+    NP = blo.shape[0]
+    # rays on the minor axis: the per-chunk reduction is a row reduction
+    o3 = tuple(ot[k].reshape(NC, 1, ray_chunk) for k in range(3))
+    i3 = tuple(inv_dir(dt[k]).reshape(NC, 1, ray_chunk) for k in range(3))
+    v = valid.reshape(NC, 1, ray_chunk)
+    pad = -NP % group
+    lo = jnp.pad(blo, ((0, pad), (0, 0)), constant_values=INF)
+    hi = jnp.pad(bhi, ((0, pad), (0, 0)), constant_values=-INF)
 
-    big = jnp.asarray(INF, F32)
-    olo = jnp.min(jnp.where(v, o, big), axis=-1).T     # [NC, 3]
-    ohi = jnp.max(jnp.where(v, o, -big), axis=-1).T
-    dlo = jnp.min(jnp.where(v, d, big), axis=-1).T
-    dhi = jnp.max(jnp.where(v, d, -big), axis=-1).T
-    return olo, ohi, dlo, dhi
+    def one_group(box):
+        glo, ghi = box                                # [group, 3] each
+        hit, entry = slab(o3, i3, tuple(glo[:, k:k + 1] for k in range(3)),
+                          tuple(ghi[:, k:k + 1] for k in range(3)))
+        hit = hit & v & (glo[:, 0:1] < INF)
+        return jnp.min(jnp.where(hit, entry, INF), axis=2)   # [NC, group]
 
-
-def cull_mask(olo, ohi, dlo, dhi, blo, bhi):
-    """[NC, NP] bool: chunk may hit page."""
-    hit, _ = cull_mask_tmin(olo, ohi, dlo, dhi, blo, bhi)
-    return hit
-
-
-@functools.partial(jax.jit, static_argnames=())
-def cull_mask_tmin(olo, ohi, dlo, dhi, blo, bhi):
-    """([NC, NP] bool, [NC, NP] f32): chunk may hit page + conservative
-    earliest entry distance (lower bound of t over all chunk rays).
-
-    tmin orders each chunk's surviving pages front-to-back, the per-chunk
-    analog of the reference's insertion-sorted child boxes
-    (raytrace.rs:941-947); the trace kernel early-exits once every ray's best
-    hit is closer than the next page's tmin (the reference's skip at
-    raytrace.rs:965).
-
-    Per axis, the admissible t interval for t*d_k to reach
-    B'_k = [blo_k - ohi_k, bhi_k - olo_k] with d_k in [dlo_k, dhi_k]:
-      - 0 in B'_k                -> [0, inf)   (origin box already overlaps)
-      - B'_k > 0: needs d_k > 0  -> [B'lo/dhi, B'hi/dlo or inf]
-      - B'_k < 0: needs d_k < 0  -> [B'hi/dlo, B'lo/dhi or inf]
-    Chunk hits page iff the three intervals intersect.
-    """
-    # [NC, 1, 3] vs [1, NP, 3]
-    blo_e = blo[None, :, :] - ohi[:, None, :]
-    bhi_e = bhi[None, :, :] - olo[:, None, :]
-    dlo_e = jnp.broadcast_to(dlo[:, None, :], blo_e.shape)
-    dhi_e = jnp.broadcast_to(dhi[:, None, :], blo_e.shape)
-
-    overlap0 = (blo_e <= 0) & (bhi_e >= 0)
-
-    # positive side: B'lo > 0
-    pos_ok = dhi_e > 0
-    pos_tlo = blo_e / dhi_e
-    pos_thi = jnp.where(dlo_e > 0, bhi_e / dlo_e, INF)
-
-    # negative side: B'hi < 0
-    neg_ok = dlo_e < 0
-    neg_tlo = bhi_e / dlo_e
-    neg_thi = jnp.where(dhi_e < 0, blo_e / dhi_e, INF)
-
-    pos_case = blo_e > 0
-    neg_case = bhi_e < 0
-
-    feasible = jnp.where(overlap0, True,
-                         jnp.where(pos_case, pos_ok, neg_ok))
-    tlo = jnp.where(overlap0, 0.0, jnp.where(pos_case, pos_tlo, neg_tlo))
-    thi = jnp.where(overlap0, INF, jnp.where(pos_case, pos_thi, neg_thi))
-    tlo = jnp.where(feasible, tlo, INF)
-    thi = jnp.where(feasible, thi, -INF)
-
-    tmin = jnp.max(tlo, axis=-1)
-    tmax = jnp.min(thi, axis=-1)
-    hit = (tmin <= tmax) & jnp.all(feasible, axis=-1)
-    return hit, jnp.where(hit, tmin, jnp.inf)
-
-
-def chunk_bounds_octants(ot, dt, valid, ray_chunk: int):
-    """Per-chunk, per-direction-OCTANT bounds: [8, NC, 3] each.
-
-    A bounce chunk mixes scatter directions; a single direction AABB then
-    straddles zero on every axis and the interval test degenerates to
-    t in [0, inf).  Splitting by direction octant (sign pattern of d) makes
-    each sub-bundle's direction box sign-definite, so the per-axis t
-    intervals bite again.  Chunk x page survives if ANY octant's test does.
-    """
-    R = ot.shape[1]
-    NC = R // ray_chunk
-    o = ot.reshape(3, NC, ray_chunk)
-    d = dt.reshape(3, NC, ray_chunk)
-    v = valid.reshape(1, NC, ray_chunk)
-
-    oct_id = ((d[0:1] < 0) + 2 * (d[1:2] < 0) + 4 * (d[2:3] < 0))  # [1,NC,RB]
-    big = jnp.asarray(INF, F32)
-
-    olo, ohi, dlo, dhi = [], [], [], []
-    for q in range(8):
-        vq = v & (oct_id == q)
-        olo.append(jnp.min(jnp.where(vq, o, big), axis=-1).T)
-        ohi.append(jnp.max(jnp.where(vq, o, -big), axis=-1).T)
-        dlo.append(jnp.min(jnp.where(vq, d, big), axis=-1).T)
-        dhi.append(jnp.max(jnp.where(vq, d, -big), axis=-1).T)
-    return (jnp.stack(olo), jnp.stack(ohi), jnp.stack(dlo), jnp.stack(dhi))
-
-
-def cull_mask_tmin_octants(olo8, ohi8, dlo8, dhi8, blo, bhi):
-    """Octant-split cull: ([NC, NP] bool, [NC, NP] f32 tmin).
-
-    Runs the interval test per octant (batched as [8*NC, NP]) and merges:
-    a page survives if any octant hits it; its tmin is the min over hitting
-    octants (still a valid conservative entry bound).
-    """
-    nc = olo8.shape[1]
-    hit8, tmin8 = cull_mask_tmin(
-        olo8.reshape(8 * nc, 3), ohi8.reshape(8 * nc, 3),
-        dlo8.reshape(8 * nc, 3), dhi8.reshape(8 * nc, 3), blo, bhi)
-    hit8 = hit8.reshape(8, nc, -1)
-    tmin8 = tmin8.reshape(8, nc, -1)
-    hit = jnp.any(hit8, axis=0)
-    tmin = jnp.min(jnp.where(hit8, tmin8, INF), axis=0)
-    return hit, jnp.where(hit, tmin, INF)
-
-
-def cull_mask_exact(ot, dt, valid, blo, bhi, ray_chunk: int):
-    """Exact per-ray slab tests, OR/min-reduced per chunk: the TIGHTEST
-    possible chunk x page mask (the union of each live ray's actual AABB
-    hits; interval-arithmetic bounds can only be a superset).
-
-    ot, dt: [3, R]; valid: [R]; blo/bhi: [NP, 3].
-    Returns ([NC, NP] mask, [NC, NP] conservative entry tmin).
-
-    Cost is ~20 ops per (ray, page) pair — trivially elementwise, fused by
-    XLA into the chunk reduction (no [R, NP] materialization of f32 temps
-    survives; the engine A/Bs this against the octant bounds).
-    """
-    R = ot.shape[1]
-    NC = R // ray_chunk
-    o = ot.reshape(3, NC, ray_chunk)
-    d = dt.reshape(3, NC, ray_chunk)
-    v = valid.reshape(NC, ray_chunk)
-
-    inv = jnp.where(d != 0, 1.0 / d, jnp.where(d >= 0, INF, -INF))
-
-    def one_page(page):
-        lo, hi = page                                 # [3] each
-        tlo = jnp.full((NC, ray_chunk), -INF, F32)
-        thi = jnp.full((NC, ray_chunk), INF, F32)
-        for k in range(3):                            # unrolled axes
-            # d==0 axes: (lo-o)*inf is NaN when the origin sits exactly on
-            # the slab boundary; use the reference-consistent semantics
-            # instead (BoundingBox::collides ignores d==0 axes,
-            # raytrace.rs:861-907): interval [-inf, inf] when the origin is
-            # inside the slab, infeasible otherwise.
-            zero = d[k] == 0
-            inside = (o[k] >= lo[k]) & (o[k] <= hi[k])
-            t1 = (lo[k] - o[k]) * inv[k]
-            t2 = (hi[k] - o[k]) * inv[k]
-            alo = jnp.where(zero, jnp.where(inside, -INF, INF),
-                            jnp.minimum(t1, t2))
-            ahi = jnp.where(zero, jnp.where(inside, INF, -INF),
-                            jnp.maximum(t1, t2))
-            tlo = jnp.maximum(tlo, alo)
-            thi = jnp.minimum(thi, ahi)
-        hit_ray = (tlo <= thi) & (thi >= 0) & v       # [NC, RB]
-        hit = jnp.any(hit_ray, axis=-1)               # [NC]
-        entry = jnp.where(hit_ray, jnp.maximum(tlo, 0.0), INF)
-        return hit, jnp.min(entry, axis=-1)
-
-    # scan over pages keeps temporaries at [NC, RB] (a few MB), which XLA
-    # fuses; the broadcast [3, NC, NP, RB] formulation OOMs at 2k resolution.
-    hit_pn, tmin_pn = jax.lax.map(one_page, (blo, bhi))
-    mask = hit_pn.T                                   # [NC, NP]
-    tmin = tmin_pn.T
-    return mask, jnp.where(mask, tmin, INF)
-
-
-def ray_aabb_hits(o, d, blo, bhi):
-    """Exact per-ray slab test [R, NP] (test oracle for cull_mask's
-    conservativeness; the reference slab test is BoundingBox::collides,
-    raytrace.rs:861-907)."""
-    inv = jnp.where(d != 0, 1.0 / d, jnp.where(d >= 0, INF, -INF))
-    t1 = (blo[None] - o[:, None]) * inv[:, None]     # [R, NP, 3]
-    t2 = (bhi[None] - o[:, None]) * inv[:, None]
-    zero = (d == 0)[:, None, :]
-    inside = (o[:, None] >= blo[None]) & (o[:, None] <= bhi[None])
-    tlo = jnp.where(zero, jnp.where(inside, -INF, INF), jnp.minimum(t1, t2))
-    thi = jnp.where(zero, jnp.where(inside, INF, -INF), jnp.maximum(t1, t2))
-    tmin = jnp.max(tlo, axis=-1)
-    tmax = jnp.min(thi, axis=-1)
-    return (tmin <= tmax) & (tmax >= 0)
+    tmin = jax.lax.map(one_group, (lo.reshape(-1, group, 3),
+                                   hi.reshape(-1, group, 3)))
+    tmin = jnp.moveaxis(tmin, 0, 1).reshape(NC, -1)[:, :NP]
+    return tmin < INF, tmin

@@ -9,7 +9,7 @@ sides, no bounding-circle test — so kernel-vs-model comparisons are tight;
 semantic comparisons against the geometric definition live in
 oracle.intersect_all.
 
-Contract (shared by intersect_xla and intersect_pallas):
+Contract (shared by intersect_xla and the traversals of ops/trace.py):
   inputs:  O, D            [R, 3] f32 ray origins / unit directions
            pages           PageTables (packed layout, ops/pages.py)
   outputs: best_t  [R] f32 — +inf where no hit
@@ -52,9 +52,9 @@ def nearest_hit_model(O: np.ndarray, D: np.ndarray, pages: PageTables,
     except for exact-tie id selection across pages).
 
     tie: cross-page rule for exactly-equal best t —
-      "page": earlier-visited page wins (the union/chunk kernels' rule);
+      "page": earlier-visited page wins (intersect_xla's scan);
       "lex":  globally smallest id wins, independent of visit order (the
-              per-lane kernel's rule, intersect_perlane.py body()).
+              rule of ops/trace.py's traversals).
     """
     O = np.asarray(O, dtype=F32)
     D = np.asarray(D, dtype=F32)

@@ -1,56 +1,45 @@
-"""Pure-XLA nearest-hit: lax.scan over triangle pages with a running min.
+"""Pure-XLA brute-force nearest-hit: lax.scan over every page with a
+running minimum.
 
-The portable implementation of the kernel contract (see intersect_ref.py) —
-used as the CPU fallback and as a second differential implementation against
-the Pallas kernel.  Structure mirrors the reference GPU cycle loop
-(`cuda_raytrace.rs:340-504`): fixed-shape page per step, running best-hit
-carried between steps — but expressed as a scan XLA can pipeline, with the
-scene resident on device.
+The portable implementation of the kernel contract (see intersect_ref.py),
+used by the reference renderer (render.WavefrontRenderer).  Structure mirrors
+the reference GPU cycle loop (`cuda_raytrace.rs:340-504`): a fixed-shape page
+per step and a best hit carried between steps, with the scene resident on
+device.  It tests every ray against every triangle, so it is a reference,
+not a production path.
 """
 
 import jax
 import jax.numpy as jnp
 
-from .pages import (LANE_ID, LANE_N, LANE_NC, LANE_S0, LANE_S0C, LANE_S1,
-                    LANE_S1C, LANE_S2, LANE_S2C, PageTables)
+from .pages import LANE_ID
+from .trace import hit_terms
 
 F32 = jnp.float32
 
 
-def device_pages(pages: PageTables):
-    """Move page tables to a device array (done once per scene)."""
-    return jnp.asarray(pages.PK)
-
-
-def nearest_hit_xla(O, D, PK, page_size: int):
-    """O, D: [R, 3] f32.  PK: [NP, P, 128] packed pages.
+def nearest_hit_xla(O, D, PK, excl=None):
+    """O, D: [R, 3] f32.  PK: [NP, P, lanes] packed pages (ops/pages.py).
+    excl: optional [R] triangle id per ray that cannot hit (0: none).
 
     Returns (best_t [R] f32 with +inf misses, best_id [R] int32, 0 = miss).
     """
     O = O.astype(F32)
     D = D.astype(F32)
+    if excl is not None:
+        excl = excl.astype(F32)
+    o3 = tuple(O[None, :, k] for k in range(3))          # [1, R]
+    d3 = tuple(D[None, :, k] for k in range(3))
 
     # Derive the scan init from the inputs (not fresh zeros) so it inherits
     # their sharding/varying axes under shard_map.
     init = (jnp.full_like(O[:, 0], jnp.inf), jnp.zeros_like(O[:, 0]))
 
     def step(carry, pk):
-        best_t, best_id = carry                    # [R]
-
-        def dotray(lane, V):                       # [P, R]
-            # Precision.HIGHEST: TPU default matmul precision is bf16-grade,
-            # which flips hit predicates near edges; geometry needs true f32.
-            return jax.lax.dot_general(
-                pk[:, lane:lane + 3], V, (((1,), (1,)), ((), ())),
-                precision=jax.lax.Precision.HIGHEST,
-                preferred_element_type=F32)
-
-        t = (pk[:, LANE_NC:LANE_NC + 1] - dotray(LANE_N, O)) / dotray(LANE_N, D)
-        d0 = dotray(LANE_S0, O) + t * dotray(LANE_S0, D) - pk[:, LANE_S0C:LANE_S0C + 1]
-        d1 = dotray(LANE_S1, O) + t * dotray(LANE_S1, D) - pk[:, LANE_S1C:LANE_S1C + 1]
-        d2 = dotray(LANE_S2, O) + t * dotray(LANE_S2, D) - pk[:, LANE_S2C:LANE_S2C + 1]
-
-        valid = (t >= 0) & (d0 <= 1) & (d1 <= 1) & (d2 <= 1)
+        best_t, best_id = carry                          # [R]
+        t, valid = hit_terms(lambda f: pk[:, f:f + 1], o3, d3)   # [P, R]
+        if excl is not None:
+            valid = valid & (pk[:, LANE_ID:LANE_ID + 1] != excl[None, :])
         tt = jnp.where(valid, t, jnp.inf)
 
         page_min = tt.min(axis=0)                                   # [R]

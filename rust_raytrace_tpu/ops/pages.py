@@ -5,14 +5,12 @@ triangles into a thread-strided SoA layout (`cuda_rt.cu:32-56, 341-377`) and
 re-uploads them every cycle; its host-side pagination windows each ray's
 ordered leaf list into fixed-size pages (`cuda_raytrace.rs:231-253`).
 
-On TPU the scene lives in HBM once, pre-packed into fixed-size PAGES of
-triangle features shaped for the intersect kernel, and pages are streamed
-through VMEM — no per-cycle repacking (that repack is the reference's measured
-bottleneck; see its 4-phase timers, cuda_rt.cu:432-440).
+Here the scene lives in device memory once, pre-packed into fixed-size PAGES
+of triangle features — no per-cycle repacking (that repack is the
+reference's measured bottleneck; see its 4-phase timers, cuda_rt.cu:432-440).
+ops/trace.py repacks these pages feature-major for the GPU kernel.
 
-Packed page layout PK [NP, P, 128] f32 — triangles on sublanes (P a multiple
-of 8), features on lanes (padded to the 128-lane tile so page slices DMA
-cleanly and each feature is a natural [P, 1] column in VMEM):
+Packed page layout PK [NP, P, 17] f32, one row per triangle slot:
 
   lane  0..2   n       unit plane normal (sides[0] x sides[1], raytrace.rs:370)
   lane  3..5   s0'     sides[0] / side_lens[0]  (prescaled inward edge normal)
@@ -21,23 +19,11 @@ cleanly and each feature is a natural [P, 1] column in VMEM):
   lane 12      n.c     plane offset (c = centroid)
   lane 13..15  sk'.c   half-plane offsets
   lane 16      id      global triangle index as f32 (exact below 2^24)
-  lane 17      edge_thickness   (edge band fraction, raytrace.rs:415-422)
-  lane 18      material kind    (0 solid / 1 matte / 2 reflective, as f32)
-  lane 19..21  material color
-  lane 22      material alpha
-  lane 23      material scattering
-  lane 24..127 zero
 
-Lanes 17..23 exist so the trace kernel can emit the winning triangle's full
-shading state via in-kernel masked reductions — XLA device gathers from
-per-triangle tables measure 0.5-75 s at 3.7M rays on TPU, so the wavefront
-NEVER gathers by hit id.
+Shading reads the winner's remaining attributes (material, edge band) from
+per-triangle tables by its id.
 
-The kernel tile orientation is triangles-on-sublanes x rays-on-lanes: the
-min-reduction over candidates folds across sublanes (a handful of full-width
-vector ops) — measured ~5x faster than the lane-reduction orientation.
-
-Intersection math consumed by all kernel implementations (see
+Intersection math consumed by all implementations (ops/trace.hit_terms; see
 ops/intersect_ref.py for the executable model), for rays O, D [3, R]:
   t      = (n.c - n.O) / n.D                        [P, R]
   dist_k = sk'.O + t * sk'.D - sk'.c                (<= 1 for inside)
@@ -72,19 +58,14 @@ LANE_S0C = 13
 LANE_S1C = 14
 LANE_S2C = 15
 LANE_ID = 16
-LANE_ET = 17
-LANE_KIND = 18
-LANE_COLOR = 19
-LANE_ALPHA = 22
-LANE_SCAT = 23
-PACK_LANES = 128
+PACK_LANES = 17
 
 
 @dataclass
 class PageTables:
     """Paged scene tables (numpy host-side; moved to device by the renderer)."""
 
-    PK: np.ndarray     # [NP, P, 128] f32 packed features (layout above)
+    PK: np.ndarray     # [NP, P, 17] f32 packed features (layout above)
     page_size: int
     num_tris: int      # real (unpadded) triangle count referenced by the pages
     aabb_lo: np.ndarray = None  # [NP, 3] f32 page bounds (+inf for empty pages)
@@ -96,7 +77,7 @@ class PageTables:
 
 
 def pack_features(tris: TriangleArrays, indices: np.ndarray) -> np.ndarray:
-    """Packed feature rows [n, 128] for a flat list of triangle indices."""
+    """Packed feature rows [n, PACK_LANES] for a flat list of triangles."""
     sel = np.asarray(indices, dtype=np.int64)
     n = sel.shape[0]
     center = tris.incenter[sel]                               # [n,3]
@@ -113,11 +94,6 @@ def pack_features(tris: TriangleArrays, indices: np.ndarray) -> np.ndarray:
     pk[:, LANE_S1C] = np.einsum("nc,nc->n", s[:, 1], center)
     pk[:, LANE_S2C] = np.einsum("nc,nc->n", s[:, 2], center)
     pk[:, LANE_ID] = sel.astype(F32)
-    pk[:, LANE_ET] = tris.edge_thickness[sel]
-    pk[:, LANE_KIND] = tris.materials.kind[sel].astype(F32)
-    pk[:, LANE_COLOR:LANE_COLOR + 3] = tris.materials.color[sel]
-    pk[:, LANE_ALPHA] = tris.materials.alpha[sel]
-    pk[:, LANE_SCAT] = tris.materials.scattering[sel]
     return pk
 
 
@@ -209,13 +185,12 @@ def kd_order(tris: TriangleArrays, page_size: int) -> np.ndarray:
     Morton cells overlap heavily once carved into fixed-size pages (a z-curve
     run can straddle cell boundaries); adaptive splits track the actual
     triangle distribution, so page AABBs overlap far less and every consumer
-    of the page bounds sharpens — the packet cull's page lists, the per-lane
-    kernel's slab-selected step counts, and the shade kernel's provable-miss
-    test.  SAH (surface-area heuristic, the standard BVH build cost model)
-    replaced the round-2 longest-axis median rule after an offline probe on
-    sampled bounce rays (scripts/probe_r4a.py) measured mean slab-hit
-    pages/ray 6.06 -> 2.77 on multi and 2.24 -> 2.14 on teapot at identical
-    page counts; the winner (t, id) is partition-independent, so the swap is
+    of the page bounds sharpens: the banks' entry bounds and the per-ray page
+    skips of the traversal (ops/trace.py).  SAH (surface-area heuristic, the
+    standard BVH build cost model) replaced a longest-axis median rule after
+    an offline measurement on sampled bounce rays: mean slab-hit pages/ray
+    6.06 -> 2.77 on multi and 2.24 -> 2.14 on teapot at identical page
+    counts; the winner (t, id) is partition-independent, so the swap is
     bit-exact.  This is the flat-page analog of the reference's octree
     subdivision (build_bounding_box, raytrace.rs:790-845) without its
     triangle duplication.  Sentinel slot 0 stays excluded (raytrace.rs:791).

@@ -5,7 +5,7 @@ redundant implementations: its CUDA wavefront backend runs a pure-Rust model of
 the kernel every cycle and diffs results (`cuda_raytrace_lib/src/
 cuda_raytrace.rs:118-229, 387-420`), and the CPU/CUDA renders are compared
 per-ray (`raytrace_lib/src/debug.rs:150-222`).  This module plays the same
-role for the TPU build: a slow, obviously-correct numpy implementation of
+role here: a slow, obviously-correct numpy implementation of
 
   - the recursive Whitted integrator `project_ray`/`color_ray`
     (raytrace.rs:1199-1295) — recursion kept recursive here, unlike the

@@ -1,64 +1,52 @@
-"""Multi-chip image-tile data parallelism (Mesh + shard_map).
+"""Multi-device image-tile data parallelism (Mesh + shard_map).
 
 The reference parallelizes over image rows with a mutex-guarded work queue and
-N CPU threads (raytrace.rs:1181-1191).  Rays are independent, so the TPU-native
-scale-out is pure data parallelism over a 1-D device mesh: the ray batch is
-sharded on a "tiles" axis, the scene tables are replicated (they are small —
-the teapot scene is ~2 MB), and each chip runs the identical wavefront program
-on its shard.  The only collectives are a `psum` of the per-wave ray counters
-(the "Rays" stat, raytrace.rs:1278) and the implicit all-gather when the
-sharded framebuffer is assembled on the host — both ride ICI.
-
-Multi-host (DCN) needs nothing extra: jax.distributed initialization plus the
-same mesh spanning all processes.
+N CPU threads (raytrace.rs:1181-1191).  Rays are independent, so the scale-out
+is pure data parallelism over a 1-D device mesh: the ray batch is sharded on a
+"tiles" axis, the scene tables are replicated, and each device runs the
+identical wavefront program on its shard.  The only collectives are a `psum`
+of the per-wave ray counters (the "Rays" stat, raytrace.rs:1278) and the
+gather of the sharded framebuffer when the host reads it.  The mesh is 1-D
+because every device reaches every other at the same rate (NVLink joins the
+cards of a host all to all).
 """
 
 import functools
 from typing import Optional
 
 import jax
-import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-from ..render import SceneTensors, trace_rays
+from ..render import SceneTensors, light_args, trace_rays
 
 TILE_AXIS = "tiles"
 
 
 def make_mesh(n_devices: Optional[int] = None) -> Mesh:
-    """1-D tile mesh over n devices.
-
-    Falls back to virtual CPU devices when the default backend has fewer
-    devices than requested (single-chip dev environments): requires
-    JAX_NUM_CPU_DEVICES (or jax_num_cpu_devices set before backend init).
-    """
+    """1-D tile mesh over the first n devices of the default backend."""
     devices = jax.devices()
     n = n_devices or len(devices)
     if len(devices) < n:
-        try:
-            jax.config.update("jax_num_cpu_devices", n)
-        except Exception:
-            pass  # backend already initialized; hope env was set
-        devices = jax.local_devices(backend="cpu")
-    if len(devices) < n:
         raise ValueError(
-            f"need {n} devices, have {len(devices)} "
-            "(set JAX_NUM_CPU_DEVICES or use a larger topology)")
+            f"need {n} devices, the {devices[0].platform} backend has "
+            f"{len(devices)}: run on a host with {n} GPUs, or for a CPU "
+            "rehearsal start Python with JAX_PLATFORMS=cpu and "
+            f"XLA_FLAGS=--xla_force_host_platform_device_count={n}")
     return Mesh(np.asarray(devices[:n]), (TILE_AXIS,))
 
 
 def trace_rays_sharded(st: SceneTensors, o, d, key, mesh: Mesh,
-                       maxdepth: int, backend: str = "xla",
-                       ray_chunk: int = 256, fixed_rng: bool = False):
-    """One full wavefront render step, sharded over image tiles.
+                       maxdepth: int, fixed_rng: bool = False):
+    """One full reference-wavefront render, sharded over image tiles.
 
     o, d: [R, 3] with R divisible by mesh size.  Returns (colors [R, 3],
-    wave_rays [maxdepth]) where wave_rays is the psum across chips.
+    wave_rays [maxdepth]) where wave_rays is the psum across devices.
     """
     n = mesh.shape[TILE_AXIS]
     R = o.shape[0]
-    assert R % n == 0, f"ray count {R} not divisible by mesh size {n}"
+    if R % n:
+        raise ValueError(f"ray count {R} not divisible by mesh size {n}")
 
     @functools.partial(
         jax.shard_map, mesh=mesh,
@@ -66,14 +54,12 @@ def trace_rays_sharded(st: SceneTensors, o, d, key, mesh: Mesh,
         out_specs=(P(TILE_AXIS), P()),
     )
     def step(st_rep, o_sh, d_sh, key_rep):
-        # Decorrelate per-chip RNG streams: a replicated key would give every
-        # chip the identical scatter-jitter sequence for its local ray
-        # indices (visible as noise patterns repeating across image tiles).
+        # Decorrelate per-device RNG streams: a replicated key would give
+        # every device the identical scatter-jitter sequence for its local
+        # ray indices (visible as noise patterns repeating across tiles).
         key_sh = jax.random.fold_in(key_rep, jax.lax.axis_index(TILE_AXIS))
         colors, aux = trace_rays(st_rep, o_sh, d_sh, key_sh,
-                                 maxdepth=maxdepth, backend=backend,
-                                 ray_chunk=ray_chunk, fixed_rng=fixed_rng)
-        # Collective: global per-wave ray counts over ICI (progress stats).
+                                 maxdepth=maxdepth, fixed_rng=fixed_rng)
         wave_rays = jax.lax.psum(aux["wave_rays"], TILE_AXIS)
         return colors, wave_rays
 
@@ -86,112 +72,56 @@ def shard_rays(o, d, mesh: Mesh):
     return jax.device_put(o, sharding), jax.device_put(d, sharding)
 
 
-def engine_render_sharded(engine, o, d, alive, key, mesh: Mesh,
-                          maxdepth: int, interpret: bool = False,
-                          fixed_rng: bool = False, compact: bool = False,
-                          spp: int = 1, pk0=None, quantize: bool = True,
-                          want_primary: bool = False):
-    """The production engine's full multi-wave render, sharded over chips.
+def engine_render_sharded(engine, o, d, alive, key, mesh: Mesh, **statics):
+    """The engine's full multi-wave render, sharded over devices.
 
-    o, d: [3, R] tile-order rays with R divisible by mesh size x ray_chunk.
-    Each chip runs the complete culled wavefront pipeline (packet cull, trace
-    megakernel, shading) on its ray shard — rays are independent, so the only
-    collective is the psum of per-wave ray counters.  Returns
-    (img_u8 [3, R//spp] sharded, wave_counts [maxdepth] global).
+    o, d: [R, 3] tile-order rays and alive [R], R divisible by the mesh size
+    times the engine's ray chunk.  `statics` are engine._render_device's
+    static arguments.  Each device runs the complete pipeline (trace, shade,
+    compaction) on its ray shard; under fixed_rng the assembled image equals
+    the unsharded render's, because every per-ray value is independent of
+    which rays share its device.  A pixel's spp samples are adjacent in tile
+    order and the per-shard ray count is a multiple of spp, so no sample
+    group straddles two devices.
 
-    `compact` routes each shard through the compacted production pipeline
-    (_render_device_compact: per-lane bounce traversal + wavefront
-    compaction/expansion) — the exact per-chip program of a single-device
-    production render.  With `fixed_rng` the sharded image is BIT-EXACT equal
-    to the unsharded engine's (every per-ray value is independent of chunk
-    grouping; compaction is reversed on device) — tests/test_sharding.py and
-    the driver dryrun assert this equality, the multi-chip analog of the
-    reference's differential methodology (debug.rs:150-222).
-
-    Lights (fused shadow feelers) follow the engine's scene: when
-    `engine.scene.lights` is set, the light constants are replicated to every
-    chip and each shard runs the identical lights program (the reference's
-    shadow design, raytrace.rs:600-610, has no cross-ray coupling either).
-    `spp > 1` rides samples on adjacent lanes exactly like the single-chip
-    path; each shard box-filters its own sample groups, which never straddle
-    shards (tile_permutation emits a pixel's spp samples contiguously and
-    the per-shard ray count must be a multiple of spp — asserted).
-
-    `want_primary` additionally returns the per-ray primary hit (t, id)
-    buffers ([2, R] sharded on rays) — the differ surface (debug.rs:
-    150-222) for multi-chip renders; each shard's wave-0 trace records its
-    own slice, so the buffers equal the unsharded render()'s bitwise.
-
-    On a real multi-chip TPU this runs the Pallas kernel per chip; for
-    virtual CPU meshes pass interpret=True.
+    Returns (img [R or R/spp, 3] sharded, wave_counts [maxdepth] global,
+    primary (t, id) sharded or None).
     """
-    from ..engine import _render_device, _render_device_compact
-
     n = mesh.shape[TILE_AXIS]
-    R = o.shape[1]
-    assert R % (n * engine.ray_chunk) == 0
-    if compact:
-        assert (R // n) % 128 == 0, "per-shard rays must align to 128 lanes"
-    assert (R // n) % spp == 0, "sample groups must not straddle shards"
+    R = o.shape[0]
+    if R % (n * engine.ray_chunk) or (R // n) % statics["spp"]:
+        raise ValueError(f"ray count {R} does not split into whole chunks "
+                         f"and sample groups over {n} devices")
+    out = _sharded_render(engine.tensors, engine.tables, o, d, alive, key,
+                          light_args(engine.scene), mesh=mesh,
+                          statics=tuple(sorted(statics.items())))
+    return out if statics["want_primary"] else out + (None,)
 
-    lights = engine.scene.lights
-    has_lights = lights is not None
-    largs = ()
-    if has_lights:
-        largs = (jnp.asarray(lights.orig, dtype=jnp.float32),
-                 jnp.asarray(lights.len2, dtype=jnp.float32))
-    has_pk0 = pk0 is not None
-    pargs = (pk0,) if has_pk0 else ()
 
-    primary_spec = (P(None, TILE_AXIS),) if want_primary else ()
+@functools.partial(jax.jit, static_argnames=("mesh", "statics"))
+def _sharded_render(st, tables, o, d, alive, key, light, *, mesh: Mesh,
+                    statics: tuple):
+    from ..engine import _render_device
+
+    statics = dict(statics)
+    want_primary = statics["want_primary"]
+    primary_spec = ((P(TILE_AXIS), P(TILE_AXIS)),) if want_primary else ()
 
     @functools.partial(
         jax.shard_map, mesh=mesh,
-        in_specs=(P(), P(), P(), P(None, TILE_AXIS), P(None, TILE_AXIS),
-                  P(TILE_AXIS), P()) + (P(),) * (len(largs) + len(pargs)),
-        out_specs=(P(None, TILE_AXIS), P()) + primary_spec,
+        in_specs=(P(), P(), P(TILE_AXIS), P(TILE_AXIS), P(TILE_AXIS), P(),
+                  P()),
+        out_specs=(P(TILE_AXIS), P()) + primary_spec,
         # pallas_call out_shapes carry no varying-mesh-axes metadata
         check_vma=False,
     )
-    def step(st, lo, hi, o_sh, d_sh, alive_sh, key_rep, *rest):
-        light_orig, light_len2 = rest[:2] if has_lights else (None, None)
-        pk0_sh = rest[-1] if has_pk0 else None
-        # Decorrelated per-chip streams with live RNG; under fixed_rng the
-        # scatter vectors are constants, so the fold_in is inert and the
-        # sharded render stays bit-equal to the unsharded one.
+    def step(st, tables, o_sh, d_sh, alive_sh, key_rep, light_rep):
+        # Decorrelated per-device streams with live RNG; under fixed_rng the
+        # scatter vectors are constants, so the fold_in is inert.
         key_sh = jax.random.fold_in(key_rep, jax.lax.axis_index(TILE_AXIS))
-        wc = 0.0 if fixed_rng else engine.weight_cutoff
-        if compact:
-            img, wave_counts, primary, _ = _render_device_compact(
-                st, lo, hi, o_sh, d_sh, alive_sh, key_sh,
-                maxdepth=maxdepth, ray_chunk=engine.ray_chunk,
-                page_size=engine.page_size, fixed_rng=fixed_rng,
-                interpret=interpret, want_primary=want_primary,
-                quantize=quantize,
-                has_lights=has_lights, light_orig=light_orig,
-                light_len2=light_len2, weight_cutoff=wc, pk0=pk0_sh,
-                nbuf=engine.nbuf, bounce_rb=engine.bounce_chunk,
-                plt_i=engine.plt_i, plt_s=engine.plt_s, ab_tab=engine.ab_tab,
-                slt_i=engine.slt_i, slt_s=engine.slt_s, s_ab=engine.s_ab,
-                s_bank_ab=engine.s_bank_ab,
-                ncompact=engine.ncompact, spp=spp,
-                gate_frac=engine.gate_frac,
-                bank_major=engine.bank_major)
-        else:
-            img, wave_counts, primary = _render_device(
-                st, lo, hi, o_sh, d_sh, alive_sh, key_sh,
-                maxdepth=maxdepth, ray_chunk=engine.ray_chunk,
-                page_size=engine.page_size, fixed_rng=fixed_rng,
-                interpret=interpret, want_primary=want_primary,
-                quantize=quantize,
-                spp=spp, has_lights=has_lights, light_orig=light_orig,
-                light_len2=light_len2, weight_cutoff=wc, pk0=pk0_sh,
-                bounce_chunk=engine.bounce_chunk, nbuf=engine.nbuf,
-                exact_cull=engine.exact_cull)
+        img, wave_counts, primary, _ = _render_device(
+            st, tables, o_sh, d_sh, alive_sh, key_sh, light_rep, **statics)
         out = (img, jax.lax.psum(wave_counts, TILE_AXIS))
-        if want_primary:
-            out = out + (primary,)
-        return out
+        return out + ((primary,) if want_primary else ())
 
-    return step(engine.tensors, engine.aabb_lo, engine.aabb_hi, o, d, alive,
-                key, *largs, *pargs)
+    return step(st, tables, o, d, alive, key, light)

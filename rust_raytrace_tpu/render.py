@@ -1,9 +1,9 @@
-"""Wavefront renderer — the production TPU render path.
+"""Wavefront renderer: the portable, brute-force reference path.
 
 The reference has two backends: a recursive per-thread CPU tracer
 (`project_ray`/`color_ray`, raytrace_lib/src/raytrace.rs:1199-1295, driven by a
 row work queue at :1168-1196) and a CUDA wavefront that only does primary rays
-(cuda_raytrace.rs:277-515).  The TPU design completes the wavefront: ALL
+(cuda_raytrace.rs:277-515).  This design completes the wavefront: ALL
 shading depths run as batched waves.
 
 Recursion -> iteration: the recursive color algebra
@@ -16,10 +16,10 @@ unrolls exactly into a running (accum, weight) pair folded over at most
     miss:         accum += weight * SKY;                 ray retires
     depth out:    nothing added (project_ray depth==0 -> black,
                   raytrace.rs:1261-1263)
-Each wave is one nearest-hit kernel launch over the whole ray batch plus a
-masked shading/scatter step; bounce rays are written in place and dead rays
-are masked (active-ray compaction is a planned optimization, mirroring the
-reference's nextcycle requeue, cuda_raytrace.rs:444-456).
+Each wave is one brute-force nearest-hit scan over every page for the whole
+ray batch plus a masked shading/scatter step; bounce rays are written in
+place and dead rays are masked.  The production path (engine.Engine) shares
+`shade_active` but culls, traverses front to back and compacts.
 
 Everything from camera ray generation to the final image is one jit program
 per wave count; the scene lives on device as paged feature tables
@@ -37,7 +37,6 @@ import numpy as np
 from . import math3d as m3
 from .camera import Viewport
 from .materials import KIND_MATTE, KIND_REFLECTIVE
-from .ops.intersect_pallas import nearest_hit_pallas
 from .ops.intersect_xla import nearest_hit_xla
 from .ops.pages import PageTables, build_pages
 from .scene import Scene
@@ -58,7 +57,7 @@ BLACK = jnp.zeros(3, dtype=F32)
 class SceneTensors:
     """Device-resident scene: intersection pages + shade tables (jit pytree)."""
 
-    PK: jax.Array           # [NP, P, 128] packed pages (ops/pages.py)
+    PK: jax.Array           # [NP, P, 17] packed pages (ops/pages.py)
     page_size: int
     # per-triangle shade tables, gathered by hit id:
     center: jax.Array       # [N, 3]
@@ -99,13 +98,16 @@ def _random_unit_vec(key, shape):
     return _unit(v)
 
 
-def shade_active(st: SceneTensors, o, d, t, hid, weight, valid, rv):
+def shade_active(st: SceneTensors, o, d, t, hid, weight, valid, rv,
+                 shadowed=None):
     """One wave of the color algebra over an active ray set.
 
     valid: rays that entered this wave alive (padding/dead rays are False and
-    contribute nothing).  Returns (contrib [R,3], weight', alive', o', d'):
-    contrib is this wave's addition to the pixel accumulator; alive' marks
-    rays that scattered and continue.
+    contribute nothing).  shadowed ([R] bool, optional) blacks out the
+    surface color of occluded hits (the commented shadow design,
+    raytrace.rs:1203-1224).  Returns (contrib [R,3], weight', alive', o',
+    d'): contrib is this wave's addition to the pixel accumulator; alive'
+    marks rays that scattered and continue.
     """
     miss = hid == 0
 
@@ -119,9 +121,14 @@ def shade_active(st: SceneTensors, o, d, t, hid, weight, valid, rv):
     alpha = st.mat_alpha[hid]
     scat = st.mat_scattering[hid]
 
+    if shadowed is not None:
+        color = jnp.where(shadowed[:, None], 0.0, color)
+
     point = o + t[:, None] * d
     ip = point - center
-    dist = jnp.einsum("rkc,rc->rk", sides, ip)
+    # elementwise, not a matrix product: no backend may run it in TF32
+    dist = (sides[..., 0] * ip[:, None, 0] + sides[..., 1] * ip[:, None, 1]
+            + sides[..., 2] * ip[:, None, 2])
     # Edge band (Triangle::intersects, raytrace.rs:415-422) evaluated on the
     # winning triangle -> solid black wireframe (getsurface, raytrace.rs:450-460)
     edge = jnp.any(dist > lens * (F32(1.0) - et[:, None]), axis=-1)
@@ -159,35 +166,67 @@ def shade_active(st: SceneTensors, o, d, t, hid, weight, valid, rv):
     return contrib, weight, scatter_live, o, d
 
 
-def _shade_wave(st: SceneTensors, o, d, t, hid, accum, weight, alive, rv):
-    """Full-batch wave (simple path): accumulate in place, no compaction."""
-    contrib, weight, alive, o, d = shade_active(st, o, d, t, hid, weight,
-                                                alive, rv)
-    return accum + contrib, weight, alive, o, d
+def fixed_scatter(R: int):
+    """The FixedRng scatter vector (oracle.FixedRng) for R rays."""
+    return jnp.broadcast_to(_unit(jnp.asarray([0.36, 0.48, 0.8], dtype=F32)),
+                            (R, 3))
 
 
-def _nearest(st: SceneTensors, o, d, backend: str, ray_chunk: int):
-    if backend == "pallas":
-        return nearest_hit_pallas(o, d, st.PK, st.page_size,
-                                  ray_chunk=ray_chunk)
-    if backend == "pallas_interpret":
-        return nearest_hit_pallas(o, d, st.PK, st.page_size,
-                                  ray_chunk=ray_chunk, interpret=True)
-    if backend == "xla":
-        return nearest_hit_xla(o, d, st.PK, st.page_size)
-    raise ValueError(f"unknown backend {backend!r}")
+def light_args(scene: Scene):
+    """Device form of the scene's light for shadow_mask (None: no light)."""
+    if scene.lights is None:
+        return None
+    return (jnp.asarray(scene.lights.orig, dtype=F32),
+            jnp.asarray(scene.lights.len2, dtype=F32))
 
 
-@functools.partial(
-    jax.jit,
-    static_argnames=("maxdepth", "backend", "ray_chunk", "fixed_rng"))
+def shadow_mask(st: SceneTensors, trace_fn, o, d, t, hid, alive, key, wave,
+                fixed_rng: bool, light):
+    """Shadow feelers (commented reference design, raytrace.rs:600-610,
+    1203-1224): a jittered ray to the light from each hit; shadowed if any
+    OTHER triangle intersects it (origin triangle excluded by id, no
+    distance limit — oracle.is_shadowed).
+
+    trace_fn(o, d, live, excl=..., any_hit=True) -> (t, id) traces them.
+    """
+    light_orig, light_len2 = light
+    R = o.shape[0]
+    hit = alive & (hid != 0)
+    point = o + jnp.where(hit, t, 0.0)[:, None] * d
+    nrm = st.norm[hid]
+    back = jnp.sum(d * nrm, axis=-1) > 0
+    norm_f = jnp.where(back[:, None], -nrm, nrm)
+    if fixed_rng:
+        u3 = jnp.full((R, 3), 0.5, F32)
+        u1 = jnp.full((R, 1), 0.5, F32)
+    else:
+        skey = jax.random.fold_in(key, 7_000_000 + wave)
+        u3 = jax.random.uniform(jax.random.fold_in(skey, 0), (R, 3), F32)
+        u1 = jax.random.uniform(jax.random.fold_in(skey, 1), (R, 1), F32)
+    adj = light_orig[None, :] + u3 * light_len2
+    sd = _unit(adj - point)
+    so = point + norm_f * (F32(0.005) * (u1 + F32(1.0)))
+    _, sid = trace_fn(jnp.where(hit[:, None], so, 0.0),
+                      jnp.where(hit[:, None], sd, 0.0), hit,
+                      excl=jnp.where(hit, hid, 0), any_hit=True)
+    return hit & (sid != 0)
+
+
+def _brute_force(st: SceneTensors):
+    def trace_fn(o, d, live, excl=None, any_hit=False):
+        # the nearest hit other than `excl` is a hit iff any other exists
+        return nearest_hit_xla(o, d, st.PK, excl)
+    return trace_fn
+
+
+@functools.partial(jax.jit, static_argnames=("maxdepth", "fixed_rng"))
 def trace_rays(st: SceneTensors, o, d, key, maxdepth: int,
-               backend: str = "xla", ray_chunk: int = 1024,
-               fixed_rng: bool = False):
+               fixed_rng: bool = False, light=None):
     """Trace a ray batch to colors.  Returns (colors [R,3], aux dict).
 
-    aux carries per-ray primary hit id/t (the debug buffers of debug.rs) and
-    the per-wave alive counts (the "Rays" stat of progress.rs/raytrace.rs:1278).
+    light: None or light_args(scene) for the shadow feelers.  aux carries
+    per-ray primary hit id/t (the debug buffers of debug.rs) and the
+    per-wave alive counts (the "Rays" stat of progress.rs/raytrace.rs:1278).
     """
     R = o.shape[0]
     accum = jnp.zeros((R, 3), dtype=F32)
@@ -200,16 +239,20 @@ def trace_rays(st: SceneTensors, o, d, key, maxdepth: int,
 
     for wave in range(maxdepth):
         wave_rays.append(jnp.sum(alive, dtype=jnp.int32))
-        t, hid = _nearest(st, o, d, backend, ray_chunk)
+        t, hid = nearest_hit_xla(o, d, st.PK)
         if wave == 0:
             primary_t, primary_id = t, hid
         if fixed_rng:
-            rv = jnp.broadcast_to(_unit(jnp.asarray([0.36, 0.48, 0.8],
-                                                    dtype=F32)), (R, 3))
+            rv = fixed_scatter(R)
         else:
             rv = _random_unit_vec(jax.random.fold_in(key, wave), (R,))
-        accum, weight, alive, o, d = _shade_wave(st, o, d, t, hid, accum,
-                                                 weight, alive, rv)
+        shadowed = None
+        if light is not None:
+            shadowed = shadow_mask(st, _brute_force(st), o, d, t, hid, alive,
+                                   key, wave, fixed_rng, light)
+        contrib, weight, alive, o, d = shade_active(st, o, d, t, hid, weight,
+                                                    alive, rv, shadowed)
+        accum = accum + contrib
     # rays still alive after maxdepth waves would recurse at depth 0 -> black
     aux = {
         "primary_t": primary_t,
@@ -263,20 +306,11 @@ class RayCaster:
 
 
 class WavefrontRenderer(RayCaster):
-    """The simple full-batch TPU RayCaster.
-
-    backend: "pallas" (TPU production), "xla" (portable), "pallas_interpret"
-    (no-TPU kernel debugging, the `interpret=True` analog of the reference's
-    run-the-Rust-model-instead-of-CUDA trick).
-    """
+    """The simple full-batch RayCaster: brute force over every page, in
+    plain XLA — the portable reference the engine is checked against."""
 
     def __init__(self, scene: Scene, page_size: int = 256,
-                 ray_chunk: int = 1024, backend: str = "auto",
                  slab_size: int = 1 << 20):
-        if backend == "auto":
-            backend = "pallas" if jax.default_backend() == "tpu" else "xla"
-        self.backend = backend
-        self.ray_chunk = ray_chunk
         self.slab_size = slab_size
         self.tensors = upload_scene(scene, page_size=page_size)
         self.scene = scene
@@ -286,7 +320,7 @@ class WavefrontRenderer(RayCaster):
         """Render the full image.
 
         Rays are processed in fixed-size slabs (a host-level loop over one jit
-        program — the TPU analog of the reference's row work queue,
+        program — the analog of the reference's row work queue,
         raytrace.rs:1181-1191): bounds per-wave temporary memory and keeps jit
         cache hits to at most two shapes (full slab + remainder).
         """
@@ -296,7 +330,7 @@ class WavefrontRenderer(RayCaster):
         spp = v.samples_per_pixel
         t0 = time.perf_counter()
 
-        o, d = _camera_rays_device(v, key, spp)
+        o, d = _camera_rays_device(v, key, spp, fixed_rng)
         R = o.shape[0]
         S = self.slab_size
         # pad ray count to a multiple of the slab for a single program shape
@@ -311,8 +345,8 @@ class WavefrontRenderer(RayCaster):
             o_s, d_s = o[lo:hi], d[lo:hi]
             c, aux = trace_rays(self.tensors, o_s, d_s,
                                 jax.random.fold_in(key, s),
-                                maxdepth=v.maxdepth, backend=self.backend,
-                                ray_chunk=self.ray_chunk, fixed_rng=fixed_rng)
+                                maxdepth=v.maxdepth, fixed_rng=fixed_rng,
+                                light=light_args(self.scene))
             colors_parts.append(c)
             aux_parts.append(aux)
             if progress is not None and n_slabs > 1:
@@ -363,8 +397,8 @@ class WavefrontRenderer(RayCaster):
         o = jnp.asarray(o[None], dtype=F32)
         d = jnp.asarray(d[None], dtype=F32)
         colors, aux = trace_rays(self.tensors, o, d, jax.random.PRNGKey(0),
-                                 maxdepth=v.maxdepth, backend=self.backend,
-                                 ray_chunk=self.ray_chunk)
+                                 maxdepth=v.maxdepth,
+                                 light=light_args(self.scene))
         wave_rays = np.asarray(aux["wave_rays"])
         return RenderResult(
             image=np.asarray(colors).reshape(1, 1, 3),
@@ -373,21 +407,22 @@ class WavefrontRenderer(RayCaster):
             primary_id=np.asarray(aux["primary_id"]).reshape(1, 1))
 
 
-@functools.partial(jax.jit, static_argnames=("width", "height", "spp"))
+@functools.partial(jax.jit, static_argnames=("width", "height", "spp",
+                                             "fixed_rng"))
 def _camera_rays_jit(orig, cam, vu, vv, key, *, width: int, height: int,
-                     spp: int):
+                     spp: int, fixed_rng: bool):
     H, W = height, width
     rows = jax.lax.broadcasted_iota(jnp.int32, (H, W), 0)
     cols = jax.lax.broadcasted_iota(jnp.int32, (H, W), 1)
     rows = rows.reshape(-1).astype(F32)
     cols = cols.reshape(-1).astype(F32)
 
-    if spp == 1:
-        u_off = v_off = F32(0.5)   # raytrace.rs:1382-1386
-        rows_s, cols_s = rows, cols
+    rows_s = jnp.repeat(rows, spp) if spp > 1 else rows
+    cols_s = jnp.repeat(cols, spp) if spp > 1 else cols
+    if spp == 1 or fixed_rng:
+        # pixel centers (raytrace.rs:1382-1386; oracle.FixedRng's 0.5)
+        u_off = v_off = F32(0.5)
     else:
-        rows_s = jnp.repeat(rows, spp)
-        cols_s = jnp.repeat(cols, spp)
         u = jax.random.uniform(jax.random.fold_in(key, 1_000_001),
                                (H * W * spp,), dtype=F32)
         vj = jax.random.uniform(jax.random.fold_in(key, 1_000_002),
@@ -402,7 +437,8 @@ def _camera_rays_jit(orig, cam, vu, vv, key, *, width: int, height: int,
     return px_u, d
 
 
-def _camera_rays_device(v: Viewport, key, spp: int):
+def _camera_rays_device(v: Viewport, key, spp: int, fixed_rng: bool):
     return _camera_rays_jit(jnp.asarray(v.orig), jnp.asarray(v.cam),
                             jnp.asarray(v.vu), jnp.asarray(v.vv), key,
-                            width=v.width, height=v.height, spp=spp)
+                            width=v.width, height=v.height, spp=spp,
+                            fixed_rng=fixed_rng)

@@ -1,7 +1,7 @@
 """ctypes loader for the native C++ scene pipeline (native/scene_pipeline.cc).
 
 The reference's host-side scene stage is native (Rust geometry/octree, C++
-marshalling); this module provides the TPU build's equivalent: a shared
+marshalling); this module provides this build's equivalent: a shared
 library compiled on demand with g++ and bound through ctypes (no pybind11 in
 the image).  Every entry point has a numpy fallback — `available()` gates use,
 and RUST_RAYTRACE_NO_NATIVE=1 disables it (tests exercise both paths).

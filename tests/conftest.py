@@ -1,13 +1,15 @@
-"""Test configuration: force JAX onto a virtual 8-device CPU mesh.
+"""Test configuration: JAX on a virtual 8-device CPU mesh by default.
 
-Real TPU hardware is single-chip in CI; multi-chip sharding tests run against
-XLA's host-platform device virtualization instead.  Must be set before JAX
-initializes, hence module import order matters (pytest loads conftest first).
+Multi-device sharding tests run against XLA's host-platform device
+virtualization.  Must be set before JAX initializes, hence module import
+order matters (pytest loads conftest first).  Tests marked `gpu` compile
+the trace kernel for a real card; they skip unless JAX_PLATFORMS names the
+GPU (`JAX_PLATFORMS=cuda python -m pytest -m gpu tests/`).
 """
 
 import os
 
-os.environ["JAX_PLATFORMS"] = "cpu"
+os.environ.setdefault("JAX_PLATFORMS", "cpu")
 os.environ.setdefault("JAX_NUM_CPU_DEVICES", "8")
 flags = os.environ.get("XLA_FLAGS", "")
 if "xla_force_host_platform_device_count" not in flags:
@@ -17,16 +19,6 @@ if "xla_force_host_platform_device_count" not in flags:
 import numpy as np
 import pytest
 
-import jax
-
-# Some dev platforms register an experimental TPU plugin that ignores
-# JAX_PLATFORMS; pin computation to the (virtual 8-device) CPU backend.
-try:
-    _cpu = jax.local_devices(backend="cpu")
-    jax.config.update("jax_default_device", _cpu[0])
-except Exception:        # pragma: no cover - CPU backend always exists
-    pass
-
 from rust_raytrace_tpu.scene import reference_asset
 
 
@@ -34,8 +26,8 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "needs_teapot: requires the reference teapot OBJ asset")
     config.addinivalue_line(
-        "markers", "slow: interpret-mode kernel / multi-program test "
-        "(minutes); fast lane = pytest -m 'not slow' (~2 min)")
+        "markers", "slow: a test too long for the fast lane "
+        "(pytest -m 'not slow')")
 
 
 def pytest_collection_modifyitems(config, items):
@@ -51,6 +43,18 @@ def rng():
     return np.random.default_rng(1234)
 
 
+@pytest.fixture
+def gpu():
+    """Skip unless JAX's first device is a GPU (decided at run time, never
+    at import, so every xdist worker collects the same tests)."""
+    import jax
+
+    dev = jax.devices()[0]
+    if dev.platform != "gpu":
+        pytest.skip(f"needs a GPU; JAX's first device is {dev.platform}")
+    return dev
+
+
 def _n_maps() -> int:
     try:
         with open("/proc/self/maps") as f:
@@ -60,13 +64,11 @@ def _n_maps() -> int:
 
 
 # Compiled executables (interpret-mode Pallas + shard_map programs) each
-# hold many mmap'd code regions; a full-suite run accumulates enough to
-# exhaust vm.max_map_count (65530 here), at which point LLVM aborts with
-# 'Cannot allocate memory' or segfaults inside a later compile (observed
-# mid-suite in the sharded-engine tests; same failure mode the soak
-# harnesses rate-limit — scripts/soak_r8.py).  Shed the executable caches
-# whenever the process's map count crosses a safety threshold; the rare
-# recompile afterwards is cheaper than a dead suite.
+# hold many mmap'd code regions; a full-suite run can accumulate enough to
+# exhaust vm.max_map_count (65530 by default), at which point LLVM aborts
+# with 'Cannot allocate memory' or segfaults inside a later compile.  Shed
+# the executable caches whenever the process's map count crosses a safety
+# threshold; the rare recompile afterwards is cheaper than a dead suite.
 _MAPS_LIMIT = 45_000
 
 

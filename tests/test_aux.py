@@ -5,8 +5,6 @@ import io
 import numpy as np
 import pytest
 
-pytestmark = pytest.mark.slow  # interpret-mode kernels: minutes per module
-
 from rust_raytrace_tpu.utils.progress import ProgressStat, create_ctx
 from rust_raytrace_tpu.utils.raydebug import DebugCtx
 
@@ -127,87 +125,88 @@ def test_depth_indented_trace_logging(caplog):
                for r in caplog.records) or " Bounding box:" in text
 
 
-def test_engine_compaction_defaults():
-    """Default = static nc=2 start + autotuned per-boundary schedule from
-    the first TPU render's wave decay (probe_r5b/r6b/r6c — docs/PERF.md);
-    explicit ncompact (int or tuple) disables autotuning; gate_frac stays
-    an opt-in."""
-    from rust_raytrace_tpu.engine import Engine
-    from rust_raytrace_tpu.models import circles, multi
-
-    s, _ = circles.build(resolution=(16, 16))
-    e = Engine(s, interpret=True)
-    assert e.ncompact == 2 and e._auto_schedule and e.gate_frac is None
-    s, _ = multi.build(resolution=(16, 16))
-    e = Engine(s, interpret=True, ncompact=2)
-    assert e.ncompact == 2 and not e._auto_schedule
-    e = Engine(s, interpret=True, ncompact=(True, False, False, True))
-    assert e.ncompact == (True, False, False, True)
-    e = Engine(s, interpret=True, ncompact=-1, gate_frac=0.5)
-    assert e.ncompact == -1 and e.gate_frac == 0.5
-
-
-def test_plan_boundaries():
-    """The schedule planner reproduces each measured chip optimum from its
-    measured wave decay (probe_r5b/r6b/r6c — docs/PERF.md)."""
-    from rust_raytrace_tpu.engine import plan_boundaries
-
-    teapot = [3686400, 1243347, 599855, 465224, 119892]
-    assert plan_boundaries(teapot) == (True, True, False, False)
-    synth = [3686400, 818202, 409689, 409250, 0]
-    assert plan_boundaries(synth) == (True, True, False, False)
-    multi = [3686400, 2347176, 1089194, 730833, 251638]
-    assert plan_boundaries(multi) == (True, True, False, False)
-    # a scene with strong mid decay keeps its third boundary
-    assert plan_boundaries([100, 30, 10, 3, 2]) == \
-        (True, True, True, False)
-    # degenerate: everything dies after wave 0 (the per-wave chunk-flag
-    # refresh makes the dead last wave ~free without a boundary)
-    assert plan_boundaries([100, 0, 0]) == (True, False)
-
-
-def test_compact_meta_self_gating():
-    """compact_meta's gate_frac skip trigger: survivors above the ratio of
-    the current prefix mark the boundary M_IDENT (in-kernel identity);
-    below it the boundary compacts and harvests normally."""
+@pytest.mark.parametrize("pattern", ["random", "all", "none", "tail"])
+def test_compact_expand_roundtrip(pattern):
+    """XLA compaction: live rays move to a prefix in their previous order,
+    dead ones follow in theirs, and expansion returns every row exactly."""
     import jax.numpy as jnp
 
-    from rust_raytrace_tpu.ops.compact import M_IDENT, compact_meta
+    from rust_raytrace_tpu.ops.compact import compact, compact_order, expand
 
-    R, cb = 1024, 256
-    alive = (jnp.arange(R) < 600).astype(jnp.float32)      # 640 padded
-    dead = jnp.zeros(R)
-    # no gate: only the >R overflow can skip
-    meta, total_a, skip, _ = compact_meta(alive, dead, cb, jnp.int32(0), R)
-    assert int(total_a) == 640 and not bool(skip)
-    # gate vs full-R prefix: 640 > 0.5*1024 -> skip
-    meta, _, skip, _ = compact_meta(alive, dead, cb, jnp.int32(0), R,
-                                    prefix=None, gate_frac=0.5)
-    assert bool(skip) and int(meta[0, M_IDENT]) == 1
-    # same survivors vs a 1024 prefix at frac 0.7: 640 <= 716 -> compact
-    meta, _, skip, _ = compact_meta(alive, dead, cb, jnp.int32(0), R,
-                                    prefix=jnp.int32(1024), gate_frac=0.7)
-    assert not bool(skip) and int(meta[0, M_IDENT]) == 0
-    # shrunken prefix 768 at frac 0.7: 640 > 537 -> skip
-    meta, _, skip, _ = compact_meta(alive, dead, cb, jnp.int32(0), R,
-                                    prefix=jnp.int32(768), gate_frac=0.7)
-    assert bool(skip)
+    R = 1000
+    rng = np.random.default_rng(4)
+    alive = {"random": rng.random(R) < 0.3, "all": np.ones(R, bool),
+             "none": np.zeros(R, bool),
+             "tail": np.arange(R) >= R - 7}[pattern]
+    x = rng.normal(size=(R, 3)).astype(np.float32)
+    order = np.asarray(compact_order(jnp.asarray(alive)))
+    assert sorted(order.tolist()) == list(range(R))       # a permutation
+    n = int(alive.sum())
+    np.testing.assert_array_equal(order[:n], np.flatnonzero(alive))
+    np.testing.assert_array_equal(order[n:], np.flatnonzero(~alive))
+    y = compact(jnp.asarray(x), jnp.asarray(order))
+    np.testing.assert_array_equal(np.asarray(y)[:n], x[alive])
+    np.testing.assert_array_equal(
+        np.asarray(expand(y, jnp.asarray(order))), x)
 
 
-def test_auto_page_size():
-    """Scene-adaptive page size: P=56 up to 8 banks; many-bank scenes grow
-    the page to fit ~7 banks (chip sweep on a 99.9k-tri sphere: P=112/7
-    banks beat P=56/14 banks 334.9 vs 399 ms — probe_r4g/h); beyond
-    MAX_BANKS*128 pages growth is forced for addressability."""
-    from rust_raytrace_tpu.engine import auto_page_size
-    from rust_raytrace_tpu.ops.intersect_perlane import GROUP, MAX_BANKS
+def test_compaction_composes():
+    """Two compactions in a row, composed through the slot->ray index the
+    engine carries, still expand back to the original positions."""
+    import jax.numpy as jnp
 
-    assert auto_page_size(6720) == 56          # teapot: 1 bank
-    assert auto_page_size(19912) == 56         # multi: 3 banks — unchanged
-    assert auto_page_size(99905) == 112        # measured optimum exactly
-    for n in (2069, 6720, 19912, 59905, 99905, 131000, 500000):
-        p = auto_page_size(n)
-        assert p % 8 == 0
-        assert -(-n // p) <= MAX_BANKS * GROUP
-        if -(-(-(-n // 56)) // GROUP) > 8:     # large-scene branch
-            assert -(-(-(-n // p)) // GROUP) <= 7
+    from rust_raytrace_tpu.ops.compact import compact, compact_order, expand
+
+    R = 512
+    rng = np.random.default_rng(5)
+    x = rng.normal(size=(R,)).astype(np.float32)
+    src = jnp.arange(R, dtype=jnp.int32)
+    y = jnp.asarray(x)
+    for p in (0.6, 0.4):
+        order = compact_order(jnp.asarray(rng.random(R) < p))
+        y, src = compact(y, order), compact(src, order)
+    np.testing.assert_array_equal(np.asarray(expand(y, src)), x)
+
+
+def test_engine_rejects_bad_options():
+    """Unknown traversal names and ray chunks that split a kernel block are
+    refused at construction, not deep inside a compiled program."""
+    from rust_raytrace_tpu.engine import Engine
+    from rust_raytrace_tpu.models import circles
+    from rust_raytrace_tpu.ops.trace import BLOCK
+
+    s, _ = circles.build(resolution=(16, 16))
+    with pytest.raises(ValueError, match="trace"):
+        Engine(s, trace="pallas")
+    with pytest.raises(ValueError, match="multiple"):
+        Engine(s, ray_chunk=BLOCK + BLOCK // 2)
+    assert Engine(s, trace="xla").plain
+
+
+def test_cli_refuses_to_run_without_gpu(monkeypatch, tmp_path):
+    """No silent CPU fallback: without a GPU the CLI stops with an error
+    naming the fix, unless JAX_PLATFORMS=cpu asked for the CPU."""
+    from rust_raytrace_tpu.cli import main
+
+    monkeypatch.delenv("JAX_PLATFORMS", raising=False)
+    with pytest.raises(SystemExit, match="JAX_PLATFORMS=cpu"):
+        main(["render", "--scene", "circles", "--resolution", "16x16",
+              "--out", str(tmp_path / "t.png")])
+    assert not (tmp_path / "t.png").exists()
+    # the numpy oracle needs no device and still runs
+    assert main(["render", "--scene", "circles", "--resolution", "8x8",
+                 "--backend", "oracle", "--maxdepth", "1",
+                 "--out", str(tmp_path / "o.png")]) == 0
+
+
+def test_cli_render_engine_on_requested_cpu(tmp_path, capsys):
+    """JAX_PLATFORMS=cpu (set for the whole suite) runs the engine with the
+    trace kernel in interpret mode and says so on stderr."""
+    from rust_raytrace_tpu.cli import main
+    from rust_raytrace_tpu.utils.png import read_png
+
+    out = str(tmp_path / "e.png")
+    assert main(["render", "--scene", "circles", "--resolution", "32x16",
+                 "--maxdepth", "2", "--ray-chunk", "128", "--out", out]) == 0
+    assert "interpret" in capsys.readouterr().err
+    assert read_png(out).shape == (16, 32, 3)

@@ -1,4 +1,4 @@
-"""End-to-end ray differ with candidate sets (VERDICT item 5).
+"""End-to-end ray differ with candidate sets.
 
 The reference's main debugging loop: render with two backends, record each
 ray's candidate-triangle set and winning hit, classify every mismatch

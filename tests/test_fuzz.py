@@ -8,21 +8,19 @@ solid/matte/reflective materials, random camera pose) rendered by all three
 implementations, asserting the same contract test_bitexact.py pins on the
 curated scenes:
 
-  - production Engine (culled + compacted + per-lane bounces, interpret
-    mode) == WavefrontRenderer("xla") to the BIT, and
+  - production Engine (trace kernel in interpret mode, and its plain-XLA
+    traversal; both compacted) == WavefrontRenderer("xla") to the BIT, and
   - both within 1 ULP (2^-23) of the recursive numpy oracle (same color
     polynomial, different association order).
 
 Random scenes reach structure the curated scenes cannot: degenerate-thin
 triangles, overlapping unaligned AABBs, SAH splits over irregular centroid
-distributions, and (scene 3) a page count past 128 that forces the BANKED
-per-lane traversal with a random multi-bank layout.
+distributions, and a page count past MAX_BANKS that makes the kernel walk
+banks of several pages.
 """
 
 import numpy as np
 import pytest
-
-pytestmark = pytest.mark.slow  # interpret-mode kernels: minutes per module
 
 from rust_raytrace_tpu import math3d as m3
 from rust_raytrace_tpu import oracle
@@ -89,23 +87,19 @@ def _rand_viewport(rng, px, maxdepth):
                            float(rng.uniform(-0.3, 0.3)), maxdepth, 1)
 
 
-def _assert_contract(scene, vp, page_size, ray_chunk, min_banks=1,
-                     streamed=None):
+def _assert_contract(scene, vp, page_size, ray_chunk, bank_pages=1):
     img_o = oracle.render(scene.tris, vp, rng=oracle.FixedRng())
 
-    wr = WavefrontRenderer(scene, backend="xla", page_size=page_size,
-                           ray_chunk=ray_chunk)
+    wr = WavefrontRenderer(scene, page_size=page_size)
     img_x = wr.render(vp, fixed_rng=True).image
 
-    eng = Engine(scene, page_size=page_size, ray_chunk=ray_chunk,
-                 interpret=True, auto_pages=False, streamed=streamed)
-    assert eng.compact
-    if streamed:
-        assert eng.streamed and eng.slt_i is not None
-    assert (eng.pages.num_pages + 127) // 128 >= min_banks
-    img_e = eng.render(vp, fixed_rng=True, quantize=False).image
-
-    np.testing.assert_array_equal(img_e, img_x)
+    for trace in ("kernel", "xla"):
+        eng = Engine(scene, page_size=page_size, ray_chunk=ray_chunk,
+                     interpret=True, trace=trace)
+        assert eng.compact
+        assert eng.tables.bank_pages >= bank_pages
+        img_e = eng.render(vp, fixed_rng=True, quantize=False).image
+        np.testing.assert_array_equal(img_e, img_x)
     assert np.abs(img_e - img_o).max() <= ULP
     assert np.abs(img_x - img_o).max() <= ULP
 
@@ -127,11 +121,9 @@ def test_random_mixed_scene():
 
 def test_random_lights_scene():
     """Lights fuzz: random scene + random jittered light.  The compacted
-    engine (fused per-lane shadow feeler) must match the unfused
-    compact=False chain BITWISE (the test_lights_fused_equals_unfused
-    contract on random geometry), and the oracle up to flipped
-    shadow-boundary pixels (occlusion is a binary decision: f32 rounding
-    may flip tangent pixels — same criterion as test_shadows.py)."""
+    engine must match the compact=False engine BITWISE, and the oracle up to
+    flipped shadow-boundary pixels (occlusion is a binary decision: f32
+    rounding may flip tangent pixels — same criterion as test_shadows.py)."""
     from rust_raytrace_tpu.scene import LightSource
 
     rng = np.random.default_rng(59)
@@ -145,9 +137,9 @@ def test_random_lights_scene():
     img_o = oracle.render(scene.tris, vp, rng=oracle.FixedRng(),
                           lights=scene.lights)
     e1 = Engine(scene, page_size=16, ray_chunk=128, interpret=True,
-                compact=True, auto_pages=False)
+                compact=True)
     e0 = Engine(scene, page_size=16, ray_chunk=128, interpret=True,
-                compact=False, auto_pages=False)
+                compact=False)
     i1 = e1.render(vp, fixed_rng=True, quantize=False).image
     i0 = e0.render(vp, fixed_rng=True, quantize=False).image
     np.testing.assert_array_equal(i1, i0)
@@ -156,43 +148,27 @@ def test_random_lights_scene():
 
 
 def test_random_multibank_scene():
-    """>128 pages at P=8 forces the banked per-lane traversal on random
-    multi-bank geometry (the curated multi scene reaches 3 banks only at
-    full scale, where interpret mode is impractical)."""
+    """More pages than MAX_BANKS at P=4: the kernel walks banks of several
+    pages on random geometry (the curated scenes reach that only at full
+    scale, where interpret mode is impractical)."""
     rng = np.random.default_rng(101)
     scene = _rand_scene(rng, n_soup=2, spheres=[(22, 26)])
     vp = _rand_viewport(rng, (24, 16), maxdepth=3)
-    _assert_contract(scene, vp, page_size=8, ray_chunk=128, min_banks=2)
+    _assert_contract(scene, vp, page_size=4, ray_chunk=128, bank_pages=2)
 
 
-def test_random_streamed_scene():
-    """Forced-streamed engine (HBM bank-worklist kernel) on random
-    multi-bank geometry joins the same engine==xla==oracle differential
-    contract as the resident paths (VERDICT r4: the newest regime was the
-    least fuzz-covered)."""
-    rng = np.random.default_rng(137)
-    scene = _rand_scene(rng, n_soup=2, spheres=[(22, 26)])
-    vp = _rand_viewport(rng, (24, 16), maxdepth=3)
-    _assert_contract(scene, vp, page_size=8, ray_chunk=128, min_banks=2,
-                     streamed=True)
-
-
-# --- round-10 soak contracts, pinned at fixed seeds (scripts/soak_r10.py
-# ran 45 disjoint seeds 700-744 through these; one representative seed per
-# contract is committed so the suite carries them, not just session logs) ---
+# --- soak contracts, pinned at fixed seeds (45 disjoint seeds 700-744 were
+# run through these; one representative seed per contract is committed) ---
 
 
 @pytest.mark.parametrize("seed", [702, 741])
 def test_random_spp_compact_equals_legacy(seed):
-    """Random scene at spp>1: compacted pipeline (samples ride lanes,
-    on-device box filter) == legacy uncompacted pipeline BITWISE, on both
-    the float and the quantized framebuffers — generalizes
-    test_bitexact.test_spp4_compact_equals_legacy beyond the curated
-    circles scene.  Seed 741 is the round-10 soak catch: its float
-    framebuffers matched but one pixel's box-filtered mean lands exactly
-    on a u8 quantization boundary, exposing XLA reduce-association
-    divergence between the two programs (fixed by _box_filter's explicit
-    add chain)."""
+    """Random scene at spp>1: compacted pipeline (samples are adjacent
+    rays, on-device box filter) == uncompacted pipeline BITWISE, on both
+    the float and the quantized framebuffers.  Seed 741 once caught one
+    pixel whose box-filtered mean lands exactly on a u8 quantization
+    boundary, exposing XLA reduce-association divergence between two
+    programs (fixed by _box_filter's explicit add chain)."""
     rng = np.random.default_rng(seed)
     scene = _rand_scene(rng, n_soup=int(rng.integers(2, 4)),
                         disks=[int(rng.integers(3, 8))] if seed % 2 else [])
@@ -208,9 +184,9 @@ def test_random_spp_compact_equals_legacy(seed):
                          int(rng.integers(3, 5)), samples)
     ps = int(rng.choice([16, 24, 40]))
     e1 = Engine(scene, page_size=ps, ray_chunk=128, interpret=True,
-                compact=True, auto_pages=False)
+                compact=True)
     e0 = Engine(scene, page_size=ps, ray_chunk=128, interpret=True,
-                compact=False, auto_pages=False)
+                compact=False)
     np.testing.assert_array_equal(
         e1.render(vp, fixed_rng=True, quantize=False).image,
         e0.render(vp, fixed_rng=True, quantize=False).image)
@@ -220,57 +196,27 @@ def test_random_spp_compact_equals_legacy(seed):
 
 
 def test_random_sharded_schedule_bitexact():
-    """Random scene on the 8-virtual-device mesh with a RANDOM tuple
-    compaction schedule: sharded production engine == unsharded BITWISE
-    (image AND wave counts) — generalizes
-    test_sharding.test_engine_sharded_bitexact to random geometry and
-    random boundary schedules."""
-    import jax
-    import jax.numpy as jnp
-    from jax.sharding import NamedSharding, PartitionSpec as P
-
-    from rust_raytrace_tpu.engine import (_camera_rays_tiled,
-                                          _render_device_compact)
-    from rust_raytrace_tpu.parallel.sharding import (engine_render_sharded,
-                                                     make_mesh)
+    """Random scene on the 8-virtual-device mesh: sharded production engine
+    == unsharded BITWISE (image AND wave counts), with compaction on in one
+    and off in the other — generalizes
+    test_sharding.test_engine_sharded_bitexact to random geometry."""
+    from rust_raytrace_tpu.parallel.sharding import make_mesh
 
     seed = 700
     rng = np.random.default_rng(seed)
     scene = _rand_scene(rng, n_soup=int(rng.integers(2, 4)),
                         spheres=[(6, 8)] if seed % 2 else [])
     vp = _rand_viewport(rng, (32, 24), maxdepth=3)
-    schedule = tuple(bool(rng.integers(0, 2)) for _ in range(4))
-    if not any(schedule):
-        schedule = (True,) + schedule[1:]
-    eng = Engine(scene, page_size=int(rng.choice([16, 24])), ray_chunk=128,
-                 interpret=True, ncompact=schedule, auto_pages=False)
-    mesh = make_mesh(8)
-    RB = eng.ray_chunk
-    R0 = vp.height * vp.width
-    R = -(-R0 // (8 * RB)) * 8 * RB
-
-    o, d = _camera_rays_tiled(
-        jnp.asarray(vp.orig), jnp.asarray(vp.cam), jnp.asarray(vp.vu),
-        jnp.asarray(vp.vv), jax.random.PRNGKey(0), width=vp.width,
-        height=vp.height, spp=1, tile=16, n_pad=R)
-    alive = jnp.arange(R) < R0
-
-    img1, wc1, _, _ = _render_device_compact(
-        eng.tensors, eng.aabb_lo, eng.aabb_hi, o, d, alive,
-        jax.random.PRNGKey(0), maxdepth=vp.maxdepth, ray_chunk=RB,
-        page_size=eng.page_size, fixed_rng=True, interpret=True,
-        want_primary=False, quantize=True, weight_cutoff=0.0,
-        plt_i=eng.plt_i, plt_s=eng.plt_s, ab_tab=eng.ab_tab,
-        ncompact=eng.ncompact)
-
-    sh = NamedSharding(mesh, P(None, "tiles"))
-    img8, wc8 = engine_render_sharded(
-        eng, jax.device_put(o, sh), jax.device_put(d, sh),
-        jax.device_put(alive, NamedSharding(mesh, P("tiles"))),
-        jax.random.PRNGKey(0), mesh, maxdepth=vp.maxdepth, interpret=True,
-        fixed_rng=True, compact=True)
-    np.testing.assert_array_equal(np.asarray(img8), np.asarray(img1))
-    np.testing.assert_array_equal(np.asarray(wc8), np.asarray(wc1))
+    ps = int(rng.choice([16, 24]))
+    compact = bool(rng.integers(0, 2))
+    eng = Engine(scene, page_size=ps, ray_chunk=128, interpret=True,
+                 compact=compact)
+    ref = Engine(scene, page_size=ps, ray_chunk=128, interpret=True,
+                 compact=not compact)
+    r1 = ref.render(vp, fixed_rng=True)
+    r8 = eng.render_sharded(vp, mesh=make_mesh(8), fixed_rng=True)
+    np.testing.assert_array_equal(r8.image, r1.image)
+    np.testing.assert_array_equal(r8.wave_rays, r1.wave_rays)
 
 
 def test_random_obj_roundtrip(tmp_path):

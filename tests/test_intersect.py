@@ -1,16 +1,14 @@
-"""Differential tests of the three nearest-hit implementations.
+"""Differential tests of the brute-force nearest-hit implementations.
 
 Methodology follows the reference's own (kernel vs pure-host model diffed per
 ray, cuda_raytrace.rs:387-420):
   - numpy model (intersect_ref)  vs  geometric brute force (oracle.intersect_all)
-  - XLA scan (intersect_xla)     vs  numpy model (bit-tight, same formulas)
-  - Pallas interpret mode        vs  numpy model
+  - XLA scan (intersect_xla)     vs  numpy model (same formulas)
+The culled traversals (ops/trace.py) are checked in test_trace.py.
 """
 
 import numpy as np
 import pytest
-
-pytestmark = pytest.mark.slow  # interpret-mode kernels: minutes per module
 
 from rust_raytrace_tpu import math3d as m3
 from rust_raytrace_tpu import oracle
@@ -74,14 +72,13 @@ def test_model_matches_geometric_bruteforce(sphere_scene, rays, page_size):
 def test_xla_matches_model(sphere_scene, rays):
     import jax.numpy as jnp
 
-    from rust_raytrace_tpu.ops.intersect_xla import (device_pages,
-                                                     nearest_hit_xla)
+    from rust_raytrace_tpu.ops.intersect_xla import nearest_hit_xla
 
     O, D = rays
     pages = build_pages(sphere_scene.tris, page_size=64)
     t_m, id_m = nearest_hit_model(O, D, pages)
-    PK = device_pages(pages)
-    t_x, id_x = nearest_hit_xla(jnp.asarray(O), jnp.asarray(D), PK, 64)
+    t_x, id_x = nearest_hit_xla(jnp.asarray(O), jnp.asarray(D),
+                                jnp.asarray(pages.PK))
     t_x, id_x = np.asarray(t_x), np.asarray(id_x)
 
     assert (id_x == id_m).mean() > 0.999
@@ -90,43 +87,35 @@ def test_xla_matches_model(sphere_scene, rays):
     assert ((id_x == 0) == (id_m == 0)).all()
 
 
-def test_pallas_interpret_matches_model(sphere_scene, rays):
+def test_xla_excluded_id(sphere_scene, rays):
+    """excl removes exactly one triangle per ray from the candidates: the
+    next-nearest hit (or a miss) takes its place."""
     import jax.numpy as jnp
 
-    from rust_raytrace_tpu.ops.intersect_pallas import nearest_hit_pallas
+    from rust_raytrace_tpu.ops.intersect_xla import nearest_hit_xla
 
     O, D = rays
     pages = build_pages(sphere_scene.tris, page_size=64)
-    t_m, id_m = nearest_hit_model(O, D, pages)
-    t_p, id_p = nearest_hit_pallas(jnp.asarray(O), jnp.asarray(D),
-                                   jnp.asarray(pages.PK),
-                                   page_size=64, ray_chunk=128,
-                                   interpret=True)
-    t_p, id_p = np.asarray(t_p), np.asarray(id_p)
-
-    assert (id_p == id_m).mean() > 0.999
-    both = np.isfinite(t_m) & np.isfinite(t_p)
-    np.testing.assert_allclose(t_p[both], t_m[both], rtol=1e-5, atol=1e-6)
-    assert ((id_p == 0) == (id_m == 0)).all()
-
-
-def test_pallas_ray_padding(sphere_scene):
-    """R not a multiple of ray_chunk: padded rays must not leak into output."""
-    import jax.numpy as jnp
-
-    from rust_raytrace_tpu.ops.intersect_pallas import nearest_hit_pallas
-
-    O = np.zeros((37, 3), dtype=F32)
-    D = np.tile(m3.unit(m3.vec(0.0, 0.0, 1.0)), (37, 1))
-    pages = build_pages(sphere_scene.tris, page_size=64)
-    t, i = nearest_hit_pallas(jnp.asarray(O), jnp.asarray(D),
-                              jnp.asarray(pages.PK),
-                              page_size=64, ray_chunk=128, interpret=True)
-    assert t.shape == (37,)
-    assert np.asarray(i).min() >= 0
-    # all rays aim at the sphere dead-center: all hit the same triangle
-    assert len(set(np.asarray(i).tolist())) == 1
-    assert np.isfinite(np.asarray(t)).all()
+    PK = jnp.asarray(pages.PK)
+    _, id0 = nearest_hit_xla(jnp.asarray(O), jnp.asarray(D), PK)
+    t1, id1 = nearest_hit_xla(jnp.asarray(O), jnp.asarray(D), PK, id0)
+    id0, id1, t1 = np.asarray(id0), np.asarray(id1), np.asarray(t1)
+    assert (id0 != 0).any()
+    # expected: the numpy model's nearest hit among the other triangles
+    from rust_raytrace_tpu.ops.intersect_ref import _page_hits
+    best_t = np.full(len(O), np.inf, np.float32)
+    best_id = np.zeros(len(O), np.int32)
+    for p in range(pages.num_pages):
+        tt, ids = _page_hits(pages.PK[p], O, D)
+        tt = np.where(ids[:, None] == id0[None, :], np.inf, tt)
+        m = tt.min(axis=0)
+        sel = np.where(tt == m[None, :], ids[:, None], np.inf).min(axis=0)
+        upd = m < best_t
+        best_t = np.where(upd, m, best_t)
+        best_id = np.where(upd, sel.astype(np.int32), best_id)
+    assert (id1 == best_id).mean() > 0.999
+    assert ((id1 != 0) & (id0 != 0)).any()     # some rays hit a second one
+    assert not ((id1 == id0) & (id0 != 0)).any()
 
 
 def test_sentinel_and_padding_never_hit(sphere_scene):

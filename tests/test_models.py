@@ -16,7 +16,8 @@ IDENT = (m3.vec(1, 0, 0), m3.vec(0, 1, 0), m3.vec(0, 0, 1))
 
 
 def test_registry_contents():
-    assert set(REGISTRY) == {"teapot", "circles", "multi", "obj"}
+    assert set(REGISTRY) == {"teapot", "circles", "multi", "obj",
+                             "sphere_100k", "sphere_1m"}
 
 
 def test_instance_transform_semantics():
@@ -47,10 +48,28 @@ def test_circles_scene_builds():
     assert not np.allclose(img, sky)
 
 
-def test_multi_scene_has_instances():
-    scene, vp = multi.build(resolution=(8, 8), maxdepth=2)
-    # spheres + disk always present; teapot instances when the asset exists
-    assert scene.num_triangles > 700
+def test_multi_scene_has_instances(monkeypatch, tmp_path):
+    import os
+
+    from rust_raytrace_tpu.obj_parser import parse_obj
+    path = os.path.join(os.path.dirname(__file__), "assets", "two_mats.obj")
+    one = tmp_path / "one.obj"
+    one.write_text("v 0 0 0\nv 1 0 0\nv 0 1 0\nf 1 2 3\n")
+    scene, vp = multi.build(resolution=(8, 8), maxdepth=2, obj_path=path)
+    small, _ = multi.build(resolution=(8, 8), maxdepth=2, obj_path=str(one))
+    template = parse_obj(path, offset=(0.0, 0.0, 0.0), scale=1.0,
+                         transform=np.eye(3, dtype=F32),
+                         surface=matte(m3.make_color((1, 1, 1)), 0.2),
+                         edge_thickness=0.0)
+    # spheres + disk, plus three instances of the template mesh
+    assert small.num_triangles > 700
+    assert scene.num_triangles - small.num_triangles == \
+        3 * (len(template) - 1)
+    # without the template mesh, multi is not silently a smaller scene
+    monkeypatch.setattr("rust_raytrace_tpu.scene.REFERENCE_DIR",
+                        "/nonexistent")
+    with pytest.raises(FileNotFoundError):
+        multi.build(resolution=(8, 8), maxdepth=2)
 
 
 def test_obj_scene_auto_framing(tmp_path):

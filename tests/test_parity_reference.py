@@ -1,4 +1,4 @@
-"""Parity gate vs the reference's SHIPPED golden (VERDICT item 6).
+"""Parity gate vs the reference's SHIPPED golden.
 
 Renders the main.rs scene at 1/8 of the 4k golden's resolution on CPU and
 gates the deterministic structure against a box-downsampled
@@ -47,18 +47,17 @@ def test_parity_vs_shipped_golden(golden_small, ours_small):
     assert stats["sky_mean_abs_diff"] < 4.0, stats
     # silhouette: the geometry footprint must align (IoU catches camera /
     # transform / mesh regressions; downsampling + bounce noise costs a
-    # little overlap, a real regression costs a lot).  Measured 0.9777;
-    # the residual 2.3% is LOCATED (probe_r12a/a2, docs/PARITY.md): the
-    # golden's disk2 was rendered at ~1.2x the shipped source's radius —
-    # two coherent side-lobe blobs, 92.6% of the disagreement — so the
-    # gate sits just under the measurement, not at a forgiving 0.8
+    # little overlap, a real regression costs a lot).  Most of the residual
+    # is the golden's second disk, drawn larger than the shipped source's
+    # radius (docs/PARITY.md), so the gate sits just under the measured
+    # overlap, not at a forgiving 0.8
     assert stats["silhouette_iou"] > 0.95, stats
 
 
 def test_parity_stats_error_norms():
     """rmse must be sqrt(mean(sq)) and mae mean(|diff|) — pinned on a
-    synthetic pair where the two differ by construction (VERDICT r2 weak #1:
-    the old formula computed MAE under the name rmse)."""
+    synthetic pair where the two differ by construction (a formula once
+    computed MAE under the name rmse)."""
     a = np.zeros((2, 2, 3), dtype=np.float32)
     b = np.zeros((2, 2, 3), dtype=np.float32)
     b[0, 0, :] = 255.0          # 3 of 12 channels differ by 1.0 (normalized)

@@ -1,6 +1,6 @@
 """Wavefront renderer vs recursive oracle — the core differential test.
 
-This is the TPU analog of the reference's CPU-vs-CUDA dual render
+This is the analog of the reference's CPU-vs-CUDA dual render
 (main.rs:190-200) + per-ray diff (debug.rs:150-222): the wavefront JAX path
 and the recursive numpy oracle must produce (near-)identical images when fed
 the same deterministic RNG.
@@ -9,7 +9,6 @@ the same deterministic RNG.
 import numpy as np
 import pytest
 
-pytestmark = pytest.mark.slow  # interpret-mode kernels: minutes per module
 
 from rust_raytrace_tpu import math3d as m3
 from rust_raytrace_tpu import oracle
@@ -48,11 +47,15 @@ def oracle_image(small_scene, vp):
     return oracle.render(small_scene.tris, vp, rng=oracle.FixedRng())
 
 
-@pytest.mark.parametrize("backend", ["xla", "pallas_interpret"])
+@pytest.mark.parametrize("backend", ["xla", "engine"])
 def test_wavefront_matches_oracle(small_scene, vp, oracle_image, backend):
-    r = WavefrontRenderer(small_scene, backend=backend, ray_chunk=256,
-                          page_size=64)
-    res = r.render(vp, fixed_rng=True)
+    if backend == "xla":
+        r = WavefrontRenderer(small_scene, page_size=64)
+        res = r.render(vp, fixed_rng=True)
+    else:
+        from rust_raytrace_tpu.engine import Engine
+        r = Engine(small_scene, page_size=64, ray_chunk=256, interpret=True)
+        res = r.render(vp, fixed_rng=True, quantize=False)
     diff = np.abs(res.image - oracle_image).max(axis=-1)
     # identical shading algebra; only fp-formulation differences at hit edges
     assert (diff > 1 / 255).mean() < 0.005
@@ -60,10 +63,8 @@ def test_wavefront_matches_oracle(small_scene, vp, oracle_image, backend):
 
 
 def test_slab_split_is_invisible(small_scene, vp):
-    whole = WavefrontRenderer(small_scene, backend="xla", ray_chunk=256,
-                              page_size=64)
-    split = WavefrontRenderer(small_scene, backend="xla", ray_chunk=256,
-                              page_size=64, slab_size=512)
+    whole = WavefrontRenderer(small_scene, page_size=64)
+    split = WavefrontRenderer(small_scene, page_size=64, slab_size=512)
     a = whole.render(vp, fixed_rng=True)
     b = split.render(vp, fixed_rng=True)
     np.testing.assert_allclose(a.image, b.image, atol=1e-6)
@@ -73,8 +74,7 @@ def test_slab_split_is_invisible(small_scene, vp):
 def test_ray_stats_match_oracle(small_scene, vp):
     stats = oracle.OracleStats()
     oracle.render(small_scene.tris, vp, rng=oracle.FixedRng(), stats=stats)
-    r = WavefrontRenderer(small_scene, backend="xla", ray_chunk=256,
-                          page_size=64)
+    r = WavefrontRenderer(small_scene, page_size=64)
     res = r.render(vp, fixed_rng=True)
     # "Rays" counting semantics: one count per project_ray call at depth >= 1
     # (raytrace.rs:1261-1278).  fp edge flips can retire a ray one wave early;
@@ -86,7 +86,7 @@ def test_sky_only_scene_renders_sky():
     scene = assemble([])
     v = create_viewport((8, 8), (1.0, 1.0), (0.0, 0.0, 0.0),
                         m3.unit(m3.vec(0.0, 0.0, 1.0)), 90.0, 0.0, 3, 1)
-    r = WavefrontRenderer(scene, backend="xla", ray_chunk=64, page_size=64)
+    r = WavefrontRenderer(scene, page_size=64)
     res = r.render(v)
     np.testing.assert_allclose(
         res.image, np.broadcast_to(m3.make_color((128, 180, 255)),
@@ -99,8 +99,7 @@ def test_sky_only_scene_renders_sky():
 def test_spp_averaging(small_scene):
     v = create_viewport((16, 16), (1.0, 1.0), (0.0, 0.0, 0.0),
                         m3.unit(m3.vec(0.0, 0.0, 1.0)), 90.0, 0.0, 3, 4)
-    r = WavefrontRenderer(small_scene, backend="xla", ray_chunk=256,
-                          page_size=64)
+    r = WavefrontRenderer(small_scene, page_size=64)
     res = r.render(v)
     assert res.image.shape == (16, 16, 3)
     assert res.primary_id.shape == (16, 16, 4)
@@ -112,8 +111,7 @@ def test_spp_averaging(small_scene):
 
 
 def test_walk_one_ray_probe(small_scene, vp, oracle_image):
-    r = WavefrontRenderer(small_scene, backend="xla", ray_chunk=256,
-                          page_size=64)
+    r = WavefrontRenderer(small_scene, page_size=64)
     res = r.walk_one_ray(vp, (16, 24))
     assert res.image.shape == (1, 1, 3)
     # primary hit id must agree with the full render's debug buffer
@@ -122,8 +120,8 @@ def test_walk_one_ray_probe(small_scene, vp, oracle_image):
 
 
 def test_engine_walk_one_ray_production_path(small_scene, vp):
-    """The single-ray probe rides the PRODUCTION pipeline (cull + per-lane
-    trace + compaction), so it probes the code a full render runs."""
+    """The single-ray probe rides the PRODUCTION pipeline (trace kernel,
+    shading, compaction), so it probes the code a full render runs."""
     from rust_raytrace_tpu.engine import Engine
 
     eng = Engine(small_scene, page_size=64, ray_chunk=256, interpret=True)
@@ -138,8 +136,8 @@ def test_engine_render_banded_bitexact(small_scene, vp):
     """render_banded == render BITWISE under fixed_rng at spp=1 for any
     band split: each band's rays are the same tile-major stream positions
     the full render emits (q_base index arithmetic), so banding only
-    changes how much device memory is resident at once — the TPU analog of
-    the reference's row work queue (raytrace.rs:1181-1191)."""
+    changes how much device memory is resident at once — the analog of the
+    reference's row work queue (raytrace.rs:1181-1191)."""
     from rust_raytrace_tpu.engine import Engine
 
     eng = Engine(small_scene, page_size=64, ray_chunk=128, interpret=True)
@@ -159,13 +157,13 @@ def test_engine_render_banded_bitexact(small_scene, vp):
 
 
 def test_engine_render_odd_spp_quantized_compact(small_scene):
-    """Odd spp (here 3): quantize=True must still yield a u8 image and the
-    COMPACT path must still engage — the padding quantum is bumped to an
-    spp-divisible size (render()/render_banded() lcm quantum rule).  The u8
-    bytes must equal host quantization of the float render: 1/3 is inexact
-    in f32 (XLA's reciprocal-multiply flipped boundary pixels by 1 u8 step,
-    ADVICE r3), so non-power-of-two spp renders float on device and
-    quantizes on host (_device_quantizable)."""
+    """Odd spp (here 3): quantize=True must still yield a u8 image — the
+    padding quantum is bumped to an spp-divisible size (render() /
+    render_banded() lcm quantum rule).  The u8 bytes must equal host
+    quantization of the float render: 1/3 is inexact in f32 (XLA's
+    reciprocal-multiply flipped boundary pixels by 1 u8 step), so
+    non-power-of-two spp renders float on device and quantizes on host
+    (_device_quantizable)."""
     from rust_raytrace_tpu.engine import Engine, _device_quantizable
     from rust_raytrace_tpu.utils.png import quantize_u8
 
@@ -173,10 +171,7 @@ def test_engine_render_odd_spp_quantized_compact(small_scene):
     vp3 = create_viewport((48, 32), (1.0, 32 / 48), (0.0, 0.0, 0.0),
                           m3.unit(m3.vec(0.0, 0.0, 1.0)), 90.0, 0.0, 4, 3)
     eng = Engine(small_scene, page_size=64, ray_chunk=128, interpret=True)
-    R0 = 48 * 32 * 3
-    quantum = 384                           # lcm(128, 3)
-    R = -(-R0 // quantum) * quantum
-    assert eng._use_compact(R, 3)
+    assert eng._quantum(3) == 384            # lcm(128, 3)
     resq = eng.render(vp3, fixed_rng=True)
     assert resq.image.dtype == np.uint8
     resf = eng.render(vp3, fixed_rng=True, quantize=False)
@@ -198,7 +193,7 @@ def test_engine_render_pow2_spp_device_quantized(small_scene):
     reciprocal + np.mean-sequential association, _device_quantizable) and
     stays byte-equal to host quantization of the float render — pinning
     that the odd-spp host fallback did not silently disengage the fast
-    device path where it is provably safe (ADVICE r3)."""
+    device path where it is provably safe."""
     from rust_raytrace_tpu.engine import Engine, _device_quantizable
     from rust_raytrace_tpu.utils.png import quantize_u8
 
@@ -232,33 +227,47 @@ def test_engine_render_banded_uneven_split(small_scene):
     np.testing.assert_array_equal(auto.image, full.image)
 
 
-def test_engine_union_fallback_beyond_table_budget():
-    """Scenes whose per-lane tables would exceed the VMEM budget fall back
-    to union-kernel bounces (plt tables absent) and still render correctly
-    (the reference octree handles any scale; so must we — VERDICT r2 #2)."""
-    import numpy as np
+def test_engine_banded_live_rng_keeps_camera_jitter(small_scene):
+    """With live RNG at spp > 1 every band draws the full render's camera
+    jitter (position-keyed threefry, _pos_uniform).  At maxdepth 1 no
+    scatter vector is drawn, so the banded image equals the full one."""
+    import jax
 
-    from rust_raytrace_tpu import math3d as m3
     from rust_raytrace_tpu.engine import Engine
-    from rust_raytrace_tpu.geometry import make_sphere
-    from rust_raytrace_tpu.materials import matte
-    from rust_raytrace_tpu.scene import assemble
 
-    scene = assemble([make_sphere((0.0, 0.0, 6.0), 2.0, (8, 12),
-                                  matte(m3.make_color((252, 119, 0)), 0.2),
-                                  0.05)])
-    vp = create_viewport((32, 32), (1.0, 1.0), (0.0, 0.0, 0.0),
-                         m3.unit(m3.vec(0.0, 0.0, 1.0)), 90.0, 0.0, 3, 1)
-    ref = Engine(scene, page_size=64, ray_chunk=128, interpret=True)
-    assert ref.plt_i is not None
-    img_ref = ref.render(vp, fixed_rng=True, quantize=False).image
+    vp4 = create_viewport((32, 64), (1.0, 2.0), (0.0, 0.0, 0.0),
+                          m3.unit(m3.vec(0.0, 0.0, 1.0)), 90.0, 0.0, 1, 4)
+    eng = Engine(small_scene, page_size=64, ray_chunk=128, interpret=True)
+    key = jax.random.PRNGKey(3)
+    full = eng.render(vp4, key=key, quantize=False)
+    banded = eng.render_banded(vp4, key=key, band_rows=32, quantize=False)
+    np.testing.assert_array_equal(banded.image, full.image)
+    # and the jitter is live: a fixed_rng render (pixel centres) differs
+    centred = eng.render(vp4, fixed_rng=True, quantize=False)
+    assert (centred.image != full.image).any()
 
-    # simulate the budget trip by patching the slot budget via big page
-    # tables: force plt off through the public auto_pages=False + a scene
-    # whose slots exceed the cap is impractical at test scale, so drop the
-    # tables directly — the engine must route bounces through the union
-    # kernel and reproduce the image bitwise.
-    noplt = Engine(scene, page_size=64, ray_chunk=128, interpret=True)
-    noplt.plt_i = noplt.plt_s = noplt.ab_tab = None
-    img_no = noplt.render(vp, fixed_rng=True, quantize=False).image
-    np.testing.assert_array_equal(img_no, img_ref)
+
+@pytest.mark.parametrize("cell", ["circles", "circles_lit", "circles_spp4"])
+def test_engine_u8_matches_oracle_on_model_scenes(cell):
+    """Engine.render at 32x32 on the benchmark's model scenes equals the
+    numpy oracle's quantized image byte for byte under fixed_rng: plain,
+    with the shadow-feeler light, and at 4 spp through the on-device box
+    filter and quantization."""
+    from rust_raytrace_tpu.engine import Engine
+    from rust_raytrace_tpu.models import circles
+    from rust_raytrace_tpu.utils.png import quantize_u8
+
+    kw = {"circles": {}, "circles_lit": {"with_light": True},
+          "circles_spp4": {"samples": 4}}[cell]
+    scene, v = circles.build(resolution=(32, 32), **kw)
+    img_o = oracle.render(scene.tris, v, rng=oracle.FixedRng(),
+                          lights=scene.lights)
+    eng = Engine(scene, ray_chunk=128, interpret=True)
+    res = eng.render(v, fixed_rng=True)
+    assert res.image.dtype == np.uint8
+    np.testing.assert_array_equal(res.image, quantize_u8(img_o))
+    if cell == "circles_lit":
+        # the light changes the image: the feelers are not inert
+        unlit, _ = circles.build(resolution=(32, 32))
+        plain = Engine(unlit, ray_chunk=128, interpret=True)
+        assert (plain.render(v, fixed_rng=True).image != res.image).any()

@@ -4,7 +4,6 @@ raytrace.rs:600-610, 1203-1224; BASELINE config 3)."""
 import numpy as np
 import pytest
 
-pytestmark = pytest.mark.slow  # interpret-mode kernels: minutes per module
 
 from rust_raytrace_tpu import math3d as m3
 from rust_raytrace_tpu import oracle
@@ -63,11 +62,11 @@ def test_engine_matches_oracle_with_shadows(shadow_scene, vp):
 
 
 def test_walk_one_ray_lights_parity(shadow_scene, vp):
-    """The single-pixel probe carries the scene's LIGHTS (fused shadow
-    feelers) — VERDICT r3 weak #4: before round 4 it silently rendered the
-    unlit scene, diverging from render() exactly where the differ probe is
-    most wanted.  Under fixed_rng the probed pixel == render()'s bitwise:
-    a shadowed pixel and a lit pixel both."""
+    """The single-pixel probe carries the scene's LIGHTS (shadow feelers);
+    a probe that rendered the unlit scene would diverge from render()
+    exactly where the differ probe is most wanted.  Under fixed_rng the
+    probed pixel == render()'s bitwise: a shadowed pixel and a lit pixel
+    both."""
     eng = Engine(shadow_scene, page_size=64, ray_chunk=256, interpret=True)
     full = eng.render(vp, fixed_rng=True, debug=True, quantize=False)
     # a pixel blacked by the occluder and a lit floor pixel
